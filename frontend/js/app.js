@@ -1,6 +1,6 @@
 // Boot: wire everything, build the toolbar, save/load, model browser.
 // Boot-sequence contract parity with /root/reference/main/static/main/index.js
-// (minus gpu.init(): compute is server-side TPU here).
+// (minus gpu.init(): compute is server-side here).
 
 import { Context, node_move } from "./graph.js";
 import { NetNode, registerAll } from "./nodes.js";

@@ -5,7 +5,7 @@
 // click-to-wire ports, cycle-checked edges, dirty-set scheduled evaluation,
 // JSON (de)serialization in the reference schema. One deliberate
 // architecture change (the reference's own roadmap, todo.md:13): model
-// compute ships to the TPU server as one /compute request — but cheap
+// compute ships to the server as one /compute request — but cheap
 // viewer-local ops whose whole ancestry is client-held evaluate HERE via
 // localops.js (zero round trip, the reference gpu.js capability).
 
@@ -253,7 +253,7 @@ export class Context {
 
 	static changed() {
 		// any mutation (structural or param) invalidates in-flight
-		// results: over the tunnel a /compute can outlive the debounce
+		// results: a slow /compute can outlive the debounce
 		// window, and routing a stale response onto a mutated/reloaded
 		// graph blanks viewers and marks detached nodes "ok"
 		Context.evalEpoch++;
@@ -418,7 +418,7 @@ export class Context {
 
 		// server request: every READY non-source non-viewer non-local node,
 		// planned by the shared pure rule (partition.js planRequest —
-		// explicit taps so only what viewers render leaves the TPU,
+		// explicit taps so only what viewers render leaves the device,
 		// source tensors deduped so one img_src ships its payload once)
 		const g = Context.describe();
 		const readyArr = Context.nodes.map((n) => ready.get(n));
@@ -452,7 +452,7 @@ export class Context {
 			// ALWAYS send taps (even []): omitting the field makes the
 			// server fall back to its harvest-everything "primary" policy
 			// — for a viewer-less 24-block chain that ships tens of MB of
-			// intermediates through the tunnel per eval for nothing
+			// intermediates over the network per eval for nothing
 			const reqJson = { nodes: nodesJson, edges: edgesJson, taps };
 			// viewer taps are render data: bf16 blocks halve response bytes
 			// over the wire (negotiated extension, docs/wire_protocol.md);
@@ -474,7 +474,7 @@ export class Context {
 			// locally-computed branches stay alive through a server
 			// failure: route their tensors to their viewers and keep
 			// their "ok (local)" status — the zero-round-trip feature
-			// matters MOST when the tunnel is flaky
+			// matters MOST when the network is flaky
 			Context.routeResults(new Map(), index, epoch);
 			// per-node error attribution: "node <i> (<name>): ..."
 			const m = msg.match(/node (\d+)/);

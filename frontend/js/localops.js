@@ -3,8 +3,8 @@
 // The reference computed EVERY non-model node client-side on WebGPU
 // (gpu.js:144-283 strided views + WGSL kernels), so re-slicing an image
 // the client already holds cost zero network. This framework evaluates
-// server-side by default (docs/parity_map.md §2.2), which put a tunnel
-// RTT (~39 ms floor) on every viewer-local edit. This module restores the
+// server-side by default (docs/parity_map.md §2.2), which put a network
+// round trip on every viewer-local edit. This module restores the
 // reference's capability for the O(pixels) ops: when a node's whole
 // ancestry is client-held (img_src tensors + these ops) and nothing
 // downstream needs the server, graph.js evaluates it HERE and skips the

@@ -2,7 +2,7 @@
 //
 // Functional parity with the reference node set
 // (/root/reference/main/static/main/nodes/*.js) minus the WGSL compute —
-// ops evaluate server-side on the TPU; this file is param UIs + rendering.
+// ops evaluate server-side; this file is param UIs + rendering.
 // New beyond the reference: attn_view (per-head attention-map heatmaps, the
 // ViT tap visualizer).
 
@@ -354,7 +354,7 @@ export class AttnViewNode extends Node {
 			}
 		}
 		// a transient failed eval routes null: keep the last render
-		// instead of blanking every thumbnail on a tunnel blip
+		// instead of blanking every thumbnail on a network blip
 		if (!t && this.t) return;
 		this.t = t;
 		this.buildGrid(); // thumbnails only change with the tensor

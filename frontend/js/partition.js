@@ -128,7 +128,7 @@ export function planRequest(g, ready, local) {
 	}
 	const index = new Map(req.map((n, k) => [n, k]));
 
-	// explicit taps: only what viewers render leaves the TPU
+	// explicit taps: only what viewers render leaves the device
 	const taps = [];
 	for (const e of g.edges) {
 		if (g.nodes[e.dst.node].viewer && index.has(e.src.node)) {
@@ -150,8 +150,8 @@ export function planRequest(g, ready, local) {
 		} else if (g.nodes[s].source) {
 			if (!g.nodes[s].hasTensor) continue; // omit, server errors per-node
 			// dedupe: one img_src feeding several consumers must ship
-			// its ~600KB payload ONCE (the tunnel's per-request floor
-			// is transfer-bound)
+			// its ~600KB payload ONCE (per-request cost is
+			// transfer-bound)
 			let ti = tensorIndex.get(s);
 			if (ti === undefined) {
 				ti = tensors.length;

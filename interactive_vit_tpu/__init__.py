@@ -1,21 +1,23 @@
-"""interactive_vit_tpu — a TPU-native interactive tappable-graph framework.
+"""interactive_vit_tpu — an interactive tappable-graph framework on JAX.
 
 A ground-up rebuild of the capabilities of the reference app
 ``0Marble/interactive-vit`` (an interactive dataflow-graph visualizer whose
 compute core ran torch CPU submodules one at a time,
-``/root/reference/main/context.py:143-147``), re-designed TPU-first:
+the reference's ``main/context.py:143-147``), re-designed for an
+accelerator:
 
 * the graph executor stages an entire graph into ONE jitted XLA program with
   the *tapped* edges as explicit outputs (``graph/executor.py``) instead of an
   eager per-node loop;
-* hot ops (flash attention with attention-map taps, fused LayerNorm+GELU MLP,
-  fused preprocessing/patchify) are Pallas TPU kernels (``ops/``);
+* hot ops keep a plain jnp path that XLA compiles everywhere; attention
+  with map taps has a Pallas-Triton GPU kernel and maps-off attention
+  calls cuDNN (``ops/dispatch.py``);
 * models (ViT family, CLIP image encoder) are functional pytree programs whose
   every block is a tappable graph node (``models/``);
 * scaling is expressed as ``jax.sharding.Mesh`` + sharding constraints so XLA
-  lowers collectives onto ICI (``parallel/``);
-* the serving layer micro-batches concurrent interactive requests into TPU
-  batches (``serving/``), speaking the reference's binary wire protocol
+  inserts the collectives (``parallel/``);
+* the serving layer micro-batches concurrent interactive requests into
+  device batches (``serving/``), speaking the reference's binary wire protocol
   (``wire/``, magics 0x69babe69 / 0xdeadbeef preserved byte-for-byte).
 """
 

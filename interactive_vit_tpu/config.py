@@ -36,7 +36,7 @@ class Config:
     compute_timeout_s: float = 120.0  # /compute deadline; wedged device -> 503
 
     # compute
-    attn_impl: str = "auto"          # auto | flash | reference
+    attn_impl: str = "auto"          # auto | reference (ops/dispatch)
     compute_dtype: str = "bfloat16"  # serving compute dtype
     use_jit: bool = True
 

@@ -3,7 +3,7 @@
 
 The reference never trains (``/root/reference/main/context.py:79-88`` runs
 under ``torch.no_grad``), so there is no analog; this is the standard ViT
-training recipe's augmentation stack rebuilt TPU-native: every op is a
+training recipe's augmentation stack rebuilt on-device: every op is a
 **static-shape jittable function of a PRNG key** — the whole pipeline
 traces into one XLA program and runs on device next to the train step (no
 host-side PIL/numpy per-batch work, no H2D traffic beyond the raw batch).
@@ -15,7 +15,7 @@ Image layout is the framework-wide ``[B, 3, H, W]`` float32/bfloat16 (the
 ``:transform`` node contract). Mixing ops return SOFT labels ``[B, C]``;
 ``parallel.train.cross_entropy`` accepts either int or soft labels.
 
-Design notes (TPU):
+Design notes:
 - per-image crops/cutout use iota-mask arithmetic, not dynamic slices —
   masks vectorize over the batch with zero gather/scatter and fuse into
   the surrounding elementwise ops;
@@ -83,7 +83,7 @@ def _shift_crop(key, x, pad: int):
     Implemented as a roll-style iota gather on the padded canvas: output
     pixel (i, j) reads padded (i + oy, j + ox) with per-image integer
     offsets in [0, 2*pad] — `take_along_axis` over each spatial dim keeps
-    shapes static and batches on the VPU.
+    shapes static and batches on the device.
     """
     b, _, h, w = x.shape
     kh, kw = jax.random.split(key)

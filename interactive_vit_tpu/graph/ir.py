@@ -4,7 +4,7 @@ Preserves the public contract of the reference IR
 (``/root/reference/main/graph.py:6-132``): a ``Graph`` of ``Node``s with
 string-keyed input/output channels, ``Edge``s that carry tensors, graph-level
 input edges, and a topological ordering. Differences from the reference are
-deliberate TPU-first design choices:
+deliberate design choices:
 
 * tensors are ``numpy``/``jax`` arrays, never torch (the reference stored
   ``torch.Tensor`` on edges, ``graph.py:53``);

@@ -6,7 +6,7 @@ of named ``NodeKind``s, each answering ``io(params)`` / ``contents(params)`` /
 ``compute(params, pinin)``, discovered by importing every ``.py`` file in the
 plugin dirs and calling its module-level ``instances()``.
 
-TPU-first change: a node kind's compute is primarily exposed as a **pure,
+Design change: a node kind's compute is primarily exposed as a **pure,
 traceable function** (``NodeKind.fn``) from a dict of input arrays to a dict
 of output arrays. The staging executor composes those functions into one
 jitted XLA program; the eager ``compute`` path (used for per-node debugging
@@ -52,7 +52,7 @@ class NodeKind:
     # Grad-node kinds that never differentiate their replay (forward-only
     # attribution, e.g. ops.node_ops.OcclusionNode) set this False: the
     # executor then re-traces the replayed cone through each kind's
-    # regular ``fn`` (kernel-backed on TPU) instead of its grad twin.
+    # regular ``fn`` (possibly kernel-backed) instead of its grad twin.
     differentiates = True
 
     def __init__(self, name: str):

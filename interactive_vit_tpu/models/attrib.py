@@ -10,15 +10,15 @@ final ``R`` is the class-specific patch heatmap — a strictly stronger
 explanation than plain attention rollout (which is class-agnostic and
 provably blind to negative heads).
 
-TPU-first mechanics — all per-block attention gradients come from ONE
+Mechanics — all per-block attention gradients come from ONE
 backward pass: the trunk is re-traced with a zero "delta" injected
 additively into every block's post-softmax probabilities, and
 ``jax.grad`` with respect to the delta tuple is exactly
 ``(∂ logit/∂A_l)_l`` (each delta stands in for its block's attention
 matrix at the true evaluation point, so the derivative is the standard
 intermediate gradient). Forward + backward + the relevance chain fuse
-into the SAME jitted program as the rest of the graph — MXU matmuls end
-to end, no host round trip. The reference could not express any of this:
+into the SAME jitted program as the rest of the graph — device matmuls
+end to end, no host round trip. The reference could not express any of this:
 its server evaluated under ``torch.no_grad()``
 (``/root/reference/main/context.py:79-88``).
 
@@ -26,9 +26,7 @@ Numerics: the injected attention mirrors ``ops.attention.attention_reference``
 line for line (f32 softmax, ``mm_precision`` policy, probs cast to the
 value dtype for the PV matmul) so the attribution trunk serves the same
 logits as the block chain. The relevance-chain matmul precision is keyed
-on the model's activation dtype, matching ``rollout_step``'s policy (an
-f32 HIGHEST batched [B,N,N] chain at N=577 reproducibly kills this
-backend's remote compile helper — docs/kernels.md).
+on the model's activation dtype, matching ``rollout_step``'s policy.
 """
 
 from __future__ import annotations

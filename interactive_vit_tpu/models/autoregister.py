@@ -30,69 +30,67 @@ def known_variants() -> list:
 
 
 def _family_maker(variant: str):
-    """Non-plain-ViT family maker as ``fn(params, seed, dtype, attn_impl,
-    kernels) -> JaxModel``, or None when ``variant`` is (or should be) a
+    """Non-plain-ViT family maker as ``fn(params, seed, dtype, attn_impl)
+    -> JaxModel``, or None when ``variant`` is (or should be) a
     plain-ViT name. ONE membership decision: a variant is non-ViT exactly
     when this returns a maker, so the quantize warning below cannot
     desynchronize from the dispatch."""
     if variant == "clip_b32":
         from interactive_vit_tpu.models.clip_plugin import make_clip_model
 
-        return lambda params, seed, dtype, attn_impl, kernels: (
+        return lambda params, seed, dtype, attn_impl: (
             make_clip_model(params=params, seed=seed, attn_impl=attn_impl,
-                            dtype=dtype, kernels=kernels))
+                            dtype=dtype))
     if variant == "vgg16":
         from interactive_vit_tpu.models.vgg_plugin import make_vgg16_model
 
-        return lambda params, seed, dtype, attn_impl, kernels: (
+        return lambda params, seed, dtype, attn_impl: (
             make_vgg16_model(params=params, seed=seed, dtype=dtype))
     if variant == "clip_text_b32":
         from interactive_vit_tpu.models.clip_text_plugin import (
             make_clip_text_model,
         )
 
-        return lambda params, seed, dtype, attn_impl, kernels: (
+        return lambda params, seed, dtype, attn_impl: (
             make_clip_text_model(params=params, seed=seed, dtype=dtype))
     if variant == "resnet50":
         from interactive_vit_tpu.models.resnet_plugin import (
             make_resnet50_model,
         )
 
-        return lambda params, seed, dtype, attn_impl, kernels: (
+        return lambda params, seed, dtype, attn_impl: (
             make_resnet50_model(params=params, seed=seed, dtype=dtype))
     if variant.startswith("convnext_"):
         from interactive_vit_tpu.models.convnext_plugin import (
             make_convnext_model,
         )
 
-        return lambda params, seed, dtype, attn_impl, kernels: (
+        return lambda params, seed, dtype, attn_impl: (
             make_convnext_model(variant, params=params, seed=seed,
                                 dtype=dtype))
     if variant.startswith("swin_"):
         from interactive_vit_tpu.models.swin_plugin import make_swin_model
 
-        return lambda params, seed, dtype, attn_impl, kernels: (
-            make_swin_model(variant, params=params, seed=seed, dtype=dtype,
-                            kernels=kernels))
+        return lambda params, seed, dtype, attn_impl: (
+            make_swin_model(variant, params=params, seed=seed, dtype=dtype))
     if variant.startswith("vit_moe"):
         from interactive_vit_tpu.models.moe_plugin import make_moe_model
 
-        return lambda params, seed, dtype, attn_impl, kernels: (
+        return lambda params, seed, dtype, attn_impl: (
             make_moe_model(variant, params=params, seed=seed, dtype=dtype,
                            attn_impl=attn_impl))
     if variant.startswith("mae_"):
         from interactive_vit_tpu.models.mae_plugin import make_mae_model
 
-        return lambda params, seed, dtype, attn_impl, kernels: (
+        return lambda params, seed, dtype, attn_impl: (
             make_mae_model(variant, params=params, seed=seed, dtype=dtype))
     if "_tome" in variant:
         from interactive_vit_tpu.models.tome_plugin import make_tome_model
 
         # any plain-vit checkpoint of the same geometry loads: token
         # merging is post-hoc (models/tome.py)
-        return lambda params, seed, dtype, attn_impl, kernels: (
-            make_tome_model(variant, params=params, seed=seed, dtype=dtype,
-                            kernels=kernels))
+        return lambda params, seed, dtype, attn_impl: (
+            make_tome_model(variant, params=params, seed=seed, dtype=dtype))
     return None
 
 
@@ -103,16 +101,12 @@ def make_model(
     dtype=None,
     attn_impl=None,
     quantize=False,
-    kernels: bool = True,
     tp_layout: bool = False,
-    block_kernel: str = "auto",
 ):
     """Build the registerable ``JaxModel`` for ``variant``.
 
-    ``quantize`` is wired only for the plain-ViT family (the kernels it
-    gates live in the ViT block path); other families log a warning and
-    serve their float dtype, matching the server's long-standing
-    behavior."""
+    ``quantize`` is wired for the plain-ViT and Swin families; other
+    families log a warning and serve their float dtype."""
     base = variant.partition("@")[0]
     if ("@" in variant and _family_maker(base) is not None
             and not base.startswith("mae_")):
@@ -124,25 +118,18 @@ def make_model(
             f"{base}'s stage/pooling geometry is resolution-specific")
     maker = _family_maker(variant)
     if maker is not None:
-        if block_kernel != "auto":
-            raise ValueError(
-                f"block_kernel={block_kernel!r} applies to the plain-ViT "
-                f"family only (the fused block kernel); {variant} has no "
-                f"s8-scores variant")
         if variant.startswith("swin_"):
-            # swin carries the full quantize contract (weight-only int8
-            # + the per-stage W8A8 MLP kernel, models/swin_plugin.py) —
-            # handled here rather than through the 5-arg maker surface
+            # swin carries the quantize contract (models/swin_plugin.py)
+            # — handled here rather than through the 4-arg maker surface
             from interactive_vit_tpu.models.swin_plugin import (
                 make_swin_model,
             )
 
             return make_swin_model(variant, params=params, seed=seed,
-                                   dtype=dtype, kernels=kernels,
-                                   quantize=quantize)
+                                   dtype=dtype, quantize=quantize)
         if quantize:
             logger.warning("int8 not wired for %s; serving bf16", variant)
-        return maker(params, seed, dtype, attn_impl, kernels)
+        return maker(params, seed, dtype, attn_impl)
 
     from interactive_vit_tpu.models import vit
 
@@ -156,5 +143,4 @@ def make_model(
 
     return make_vit_model(variant, params=params, seed=seed,
                           attn_impl=attn_impl, dtype=dtype,
-                          quantize=quantize, kernels=kernels,
-                          tp_layout=tp_layout, block_kernel=block_kernel)
+                          quantize=quantize, tp_layout=tp_layout)

@@ -105,18 +105,13 @@ def _mlp_quickgelu(x: jnp.ndarray, p: Params) -> jnp.ndarray:
 
 
 def block(p: Params, x: jnp.ndarray, cfg: CLIPVisionConfig,
-          want_attn: bool = False, attn_impl=None, block_impl=None
+          want_attn: bool = False, attn_impl=None
           ) -> Tuple[jnp.ndarray, Optional[jnp.ndarray]]:
-    if block_impl is not None:
-        # the attention branch is structurally identical to ViT's, so the
-        # fused attention-block Pallas kernel applies directly
-        x, probs = block_impl(x, p, cfg.heads, cfg.ln_eps, want_attn)
-    else:
-        h, probs = attn_ops.mhsa(
-            L.layer_norm(x, p["ln1_s"], p["ln1_b"], cfg.ln_eps),
-            p, cfg.heads, want_attn=want_attn, attn_impl=attn_impl,
-        )
-        x = x + h
+    h, probs = attn_ops.mhsa(
+        L.layer_norm(x, p["ln1_s"], p["ln1_b"], cfg.ln_eps),
+        p, cfg.heads, want_attn=want_attn, attn_impl=attn_impl,
+    )
+    x = x + h
     x = x + _mlp_quickgelu(
         L.layer_norm(x, p["ln2_s"], p["ln2_b"], cfg.ln_eps), p
     )
@@ -165,7 +160,7 @@ def forward(params: Params, images: jnp.ndarray, cfg: CLIPVisionConfig,
 # -- node decomposition -----------------------------------------------------------
 
 
-def layer_fns(cfg: CLIPVisionConfig, attn_impl=None, block_impl=None):
+def layer_fns(cfg: CLIPVisionConfig, attn_impl=None):
     layers: List[Tuple[str, List[str], Callable]] = []
 
     from interactive_vit_tpu.ops.preprocess_mm import preprocess_mm
@@ -195,7 +190,7 @@ def layer_fns(cfg: CLIPVisionConfig, attn_impl=None, block_impl=None):
         # one shared fn: unlike vit.layer_fns there is no per-index
         # behavior, the layer identity comes entirely from its captures
         y, probs = block(p, ins["o"], cfg, want_attn=bool(want),
-                         attn_impl=attn_impl, block_impl=block_impl)
+                         attn_impl=attn_impl)
         outs = {"o": y}
         if probs is not None:
             outs["attn"] = probs

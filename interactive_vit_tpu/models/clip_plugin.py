@@ -11,8 +11,7 @@ from interactive_vit_tpu.models.model_plugin import JaxModel
 
 
 def make_clip_model(params: Optional[Any] = None, seed: int = 0,
-                    dtype=None, attn_impl=None, cfg=None,
-                    kernels: bool = True) -> JaxModel:
+                    dtype=None, attn_impl=None, cfg=None) -> JaxModel:
     import jax.numpy as jnp
 
     cfg = cfg or clip.CLIPVisionConfig()
@@ -20,14 +19,6 @@ def make_clip_model(params: Optional[Any] = None, seed: int = 0,
         params = clip.init_params(jax.random.key(seed), cfg,
                                   dtype=dtype or jnp.float32)
 
-    from interactive_vit_tpu.ops.dispatch import default_block_impl
-
-    leaf_dtype = jax.tree.leaves(params)[0].dtype
-    # kernels=False: GSPMD-partitionable path for mesh-sharded serving
-    # (Pallas custom calls don't partition), same contract as vit_plugin
-    block_impl = default_block_impl(
-        "auto", dtype=leaf_dtype, n=cfg.tokens, d=cfg.width, heads=cfg.heads
-    ) if kernels else None
     descriptions = {
         "transform": f"Resize+CenterCrop({cfg.img_size})+CLIP-Normalize",
         "embed": f"PatchEmbed p={cfg.patch} + CLS + pos + ln_pre",
@@ -37,15 +28,14 @@ def make_clip_model(params: Optional[Any] = None, seed: int = 0,
             for i in range(cfg.depth)
         },
     }
-    # differentiable twins for gradient replays: Pallas custom calls
-    # (fused block / flash attention) have no AD rule
+    # differentiable twins for gradient replays: Pallas kernels have no
+    # AD rule
     grad_layers = None
-    if block_impl is not None or attn_impl is not None:
+    if attn_impl is not None:
         grad_layers = {ln: f for ln, _extra, f in clip.layer_fns(cfg)}
     return JaxModel(
         name=cfg.name,
-        layers=clip.layer_fns(cfg, attn_impl=attn_impl,
-                              block_impl=block_impl),
+        layers=clip.layer_fns(cfg, attn_impl=attn_impl),
         params=params,
         layer_params_fn=clip.layer_params,
         descriptions=descriptions,

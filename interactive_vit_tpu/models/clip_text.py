@@ -12,8 +12,8 @@ Architecture (OpenAI CLIP text transformer, ViT-B/32 scale): token embedding
 the features at each sequence's end-of-text position, then a bias-free
 projection into the shared 512-d embedding space, L2-normalized.
 
-TPU notes: N=77 is far below the Pallas crossover (XLA reference attention
-wins under N~256 — CLAUDE.md), so the causal attention is a plain jnp path
+Notes: the causal attention is a plain jnp path (the attention kernels
+take no causal mask)
 with f32 softmax and ``mm_precision`` discipline; the whole tower stages
 into the executor's single fused program with weights as device-resident
 captures like every other model family.

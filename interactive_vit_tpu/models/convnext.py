@@ -12,11 +12,11 @@ downsampling between stages, and an avgpool -> LayerNorm -> Linear head.
 Stochastic depth is identity at eval (this framework's serving/replay
 semantics), matching torch eval mode.
 
-TPU design: activations stay **NHWC end-to-end** — the FLOPs live in the
-pointwise MLPs, which are plain channel-last matmuls on the MXU with no
+Design: activations stay **NHWC end-to-end** — the FLOPs live in the
+pointwise MLPs, which are plain channel-last matmuls with no
 layout moves (torchvision permutes NCHW<->NHWC around every block; here
 the permute happens once at the stem). The 7x7 depthwise conv lowers via
-``lax.conv_general_dilated`` with ``feature_group_count=C`` (VPU-bound,
+``lax.conv_general_dilated`` with ``feature_group_count=C`` (memory-bound,
 <2% of FLOPs). All dots/convs accumulate f32 (``mm_precision``,
 CLAUDE.md trap #4). Stage taps are spatial ``[B, H, W, C]`` — the same
 rank the dense-feature viewers (pca_view/patch_sim) already accept for

@@ -3,10 +3,10 @@
 The reference has no parallelism at all (SURVEY §2.3: "The reference has
 NONE of these as code"); EP was the one axis of the rebuild's parallelism
 matrix covered only as a documented non-goal ("no MoE in scope"). This
-module closes it the TPU way: a Switch-style routed MLP whose experts
+module closes it the static-shape way: a Switch-style routed MLP whose experts
 shard over the mesh "model" axis, written entirely as static-shape
-einsums so XLA/GSPMD lowers the token dispatch/combine to MXU matmuls +
-ICI collectives — no gather/scatter, no dynamic shapes, no host routing.
+einsums so XLA/GSPMD lowers the token dispatch/combine to matmuls +
+collectives — no gather/scatter, no dynamic shapes, no host routing.
 
 Routing (Switch Transformer, top-1, capacity-factor dropping, grouped
 PER IMAGE — see ``route`` for why per-image grouping is a performance
@@ -20,11 +20,11 @@ contract, not a detail):
   einsum('bnec,bnd->becd')`` and the combine is its transpose weighted
   by the gate — dense matmuls, the canonical GShard/Switch formulation;
 - experts run as ONE batched MLP over the E dim ([B,E,C,D] x [E,D,M])
-  — MXU-batched, and the E dim is what EP shards.
+  — one batched contraction, and the E dim is what EP shards.
 
 EP = ``param_spec`` maps ``exp_*`` weights to ``P("model", ...)``: with
 experts sharded over "model" the dispatch einsum's [E,C,D] output is
-E-sharded, GSPMD inserts the token all-to-all over ICI, and each chip
+E-sharded, GSPMD inserts the token all-to-all, and each device
 runs only its experts — the GSPMD idiom for expert parallelism (the
 hand-written alternative, shard_map + lax.all_to_all, buys nothing here
 because the routing masks are already dense einsum operands).
@@ -126,8 +126,8 @@ def route(x: jnp.ndarray, router_w, cfg: MoEViTConfig):
     capacity ``C = ceil(f * N / E)`` per image. This is a PERFORMANCE
     contract, not just semantics: a flattened [S=B*N] formulation makes
     the dispatch one-hot [S, E, C] with C ∝ S, so the dispatch/combine
-    einsums cost O(S²·D·f) — measured on v5e as 11.5x step time for 4x
-    batch (r3_moe_bench round 1). Per-image grouping keeps every shape
+    einsums cost O(S²·D·f): 4x the batch is 16x the dispatch work.
+    Per-image grouping keeps every shape
     linear in batch, and the batch dim stays the DP shard axis.
     """
     n = x.shape[1]

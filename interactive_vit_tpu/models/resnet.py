@@ -22,10 +22,10 @@ loads real ``resnet50`` state dicts (also via serving ``--ckpt``, layout
 auto-detected). Eval semantics: BN uses running stats; accepts [3,H,W]
 or [B,3,H,W].
 
-TPU notes: every conv lowers through ``jax.lax.conv_general_dilated``
-onto the MXU with f32 accumulation (``mm_precision`` policy, CLAUDE.md
-trap #4); BN folds to scale+shift at conversion time so serving does one
-multiply-add per channel instead of rsqrt chains.
+Notes: every conv lowers through ``jax.lax.conv_general_dilated``
+(cuDNN on the GPU) with f32 accumulation (``mm_precision`` policy); BN
+folds to scale+shift at conversion time so serving does one multiply-add
+per channel instead of rsqrt chains.
 """
 
 from __future__ import annotations

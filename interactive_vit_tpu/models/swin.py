@@ -8,17 +8,17 @@ resolution. The reference wrapped one torch model generically
 (``/root/reference/main/context.py:38-47``); this module is the same
 contract for the Swin family, decomposed into tappable per-block nodes.
 
-TPU-first design notes:
+Design notes:
 
 * Activations flow **NHWC** ``[B, H, W, C]``: window partitioning is then
   a static reshape/transpose chain (zero data-dependent control flow) and
-  C rides the lane dimension for the LN/MLP fusions.
+  C is the contiguous dimension for the LN/MLP fusions.
 * Window partition/merge, the shifted-window roll, the relative-position
   bias gather and the cross-boundary attention mask are all **static**:
   masks and bias indices are computed with numpy at trace time and enter
   the program as constants — nothing in the hot path branches.
 * Attention runs per window over ``B * num_windows`` batched [49, C]
-  tiles: small dots the MXU processes as one big batched contraction;
+  tiles: small dots that run as one big batched contraction;
   softmax statistics in f32 (``ops.layers`` policy, CLAUDE.md trap #4).
 * Shift wraparound uses ``jnp.roll`` with static shifts (lowers to two
   slices + concat, no gather).
@@ -155,7 +155,7 @@ def gather_bias(p: Params, bias_idx: np.ndarray, t: int,
     """[heads, T, T] relative-position bias from the (2w-1)^2 table.
 
     A trace-time constant expression per block (the gather index is
-    numpy); shared by the jnp reference and the fused window kernel."""
+    numpy)."""
     bias = p["bias_table"][bias_idx.reshape(-1)]  # [T*T, heads]
     return bias.reshape(t, t, heads).transpose(2, 0, 1)
 
@@ -214,8 +214,6 @@ def block(
     stage: int,
     shift: int,
     want_attn: bool = False,
-    window_impl=None,
-    mlp_impl=None,
 ) -> Tuple[jnp.ndarray, Optional[jnp.ndarray]]:
     """One Swin block over [B, H, W, C]: x + W-MSA(LN(x)) then
     x + MLP(LN(x)), windows (shifted by ``shift``) inside the attention.
@@ -223,12 +221,7 @@ def block(
     Returns (y, probs [B, nW, heads, T, T] | None); probs are in the
     PRE-ROLL window order when shifted (the tap shows what the softmax
     actually computed — window w of a shifted block covers the rolled
-    tile, seam pairs masked to 0).
-
-    ``window_impl``: fused W-MSA branch kernel
-    (``ops/fused_window.fused_window_attn`` — consumes the rolled LN'd
-    NHWC map directly, so ``window_partition``/``window_merge`` never
-    materialize); None = the jnp reference path."""
+    tile, seam pairs masked to 0)."""
     res = cfg.stage_res(stage)
     if x.shape[1] != res or x.shape[2] != res:
         raise ValueError(
@@ -241,31 +234,15 @@ def block(
     if shift:
         y = jnp.roll(y, (-shift, -shift), axis=(1, 2))
     mask = shift_attn_mask(res, cfg.window, shift)
-    if window_impl is not None:
-        t = cfg.window * cfg.window
-        bias = gather_bias(p, relative_position_index(cfg.window), t,
-                           cfg.heads[stage])
-        a, probs = window_impl(y, p, cfg.heads[stage], cfg.window,
-                               bias, mask, want_attn=want_attn)
-    else:
-        yw = window_partition(y, cfg.window)
-        aw, probs = window_attention(
-            p, yw, cfg.heads[stage], relative_position_index(cfg.window),
-            mask, want_attn=want_attn)
-        a = window_merge(aw, cfg.window, res)
+    yw = window_partition(y, cfg.window)
+    aw, probs = window_attention(
+        p, yw, cfg.heads[stage], relative_position_index(cfg.window),
+        mask, want_attn=want_attn)
+    a = window_merge(aw, cfg.window, res)
     if shift:
         a = jnp.roll(a, (shift, shift), axis=(1, 2))
     x = x + a
-    if mlp_impl is not None:
-        # the MLP branch is row-local, so the NHWC map flattens to the
-        # [B, H*W, C] token contract the fused (W8A8) MLP kernel takes —
-        # a free HBM reshape, same trick as the fused window kernel
-        b_, hh, ww, c = x.shape
-        x = mlp_impl(x.reshape(b_, hh * ww, c), p,
-                     eps=cfg.ln_eps).reshape(b_, hh, ww, c)
-    else:
-        x = x + L.mlp(
-            L.layer_norm(x, p["ln2_s"], p["ln2_b"], cfg.ln_eps), p)
+    x = x + L.mlp(L.layer_norm(x, p["ln2_s"], p["ln2_b"], cfg.ln_eps), p)
     return x, probs
 
 
@@ -285,7 +262,7 @@ def patch_merging(p: Params, x: jnp.ndarray) -> jnp.ndarray:
 def patch_embed(p: Params, images: jnp.ndarray, cfg: SwinConfig) -> jnp.ndarray:
     """[B, C, H, W] -> [B, H/p, W/p, D]: patchify matmul + LayerNorm.
 
-    The stride-4 conv expressed as ONE [B*N, C*p*p] @ [C*p*p, D] MXU
+    The stride-4 conv expressed as ONE [B*N, C*p*p] @ [C*p*p, D]
     matmul (same patchify layout as the ViT family); activations adopt
     the weight dtype here — the model's single entry point."""
     act_dtype = p["w"].dtype if hasattr(p["w"], "dtype") else p["b"].dtype
@@ -461,8 +438,6 @@ def forward(
     cfg: SwinConfig,
     want_attn: bool = False,
     block_wrapper=None,
-    window_impl=None,
-    mlp_impls=None,
 ) -> Dict[str, jnp.ndarray]:
     """Full forward: [B,3,H,W] -> {"logits": [B,K]} (+ "attn": per-block
     tuple of [B, nW, heads, T, T] window-attention maps when requested —
@@ -472,17 +447,9 @@ def forward(
     ``(p, x) -> y`` unit passed through the wrapper (``jax.checkpoint``
     for remat; same contract as ``vit.forward``, so the remat path
     cannot drift from the inference trunk). Taps don't compose with a
-    single-output wrapper.
-
-    ``window_impl``: fused W-MSA kernel (see ``block``); forced to None
-    under ``block_wrapper`` — Pallas custom calls have no AD rule, so the
-    training path stays on the differentiable XLA trunk."""
+    single-output wrapper."""
     if block_wrapper is not None and want_attn:
         raise ValueError("block_wrapper requires taps off")
-    if block_wrapper is not None:
-        # Pallas custom calls have no AD rule: training stays XLA
-        window_impl = None
-        mlp_impls = None
     x = patch_embed(params["patch_embed"], images, cfg)
     attns: List[jnp.ndarray] = []
     for s, blocks in enumerate(params["stages"]):
@@ -496,9 +463,7 @@ def forward(
                 x = block_wrapper(one)(p, x)
                 continue
             x, probs = block(p, x, cfg, s, cfg.stage_shift(s, bi),
-                             want_attn=want_attn, window_impl=window_impl,
-                             mlp_impl=(mlp_impls[s] if mlp_impls
-                                       else None))
+                             want_attn=want_attn)
             if want_attn:
                 attns.append(probs)
         if s < len(params["merges"]):
@@ -515,15 +480,12 @@ def forward(
 # -- graph-node decomposition --------------------------------------------------
 
 
-def layer_fns(cfg: SwinConfig, window_impl=None, mlp_impls=None):
+def layer_fns(cfg: SwinConfig):
     """The model as ordered named tappable layers (see ``vit.layer_fns``).
 
     Surface: transform, patch_embed, stages.{s}.{b} (extra channel
     "attn" = [B, nW, heads, T, T] window maps), merge.{s} between stages,
-    norm, pool, head — 20 nodes for swin_t. ``window_impl``: fused W-MSA
-    kernel for the block nodes (see ``block``); ``mlp_impls``: per-stage
-    fused MLP kernels (the W8A8 path — stage dims differ, so each stage
-    gets its own block_q-tuned kernel or None)."""
+    norm, pool, head — 20 nodes for swin_t."""
     layers: List[Tuple[str, List[str], Callable]] = []
 
     def transform_fn(p, ins):
@@ -548,10 +510,7 @@ def layer_fns(cfg: SwinConfig, window_impl=None, mlp_impls=None):
 
         def block_fn(p, ins, want=frozenset(), node_params=None):
             y, probs = block(p, ins["o"], cfg, s, shift,
-                             want_attn="attn" in want,
-                             window_impl=window_impl,
-                             mlp_impl=(mlp_impls[s] if mlp_impls
-                                       else None))
+                             want_attn="attn" in want)
             outs = {"o": y}
             if "attn" in want:
                 # selective taps, STATIC params (shape-changing -> in the

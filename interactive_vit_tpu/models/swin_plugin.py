@@ -7,9 +7,9 @@ model-explosion contract, ``/root/reference/main/context.py:38-47``).
 
 No fold groups: adjacent blocks ALTERNATE shifted/unshifted windows, so
 a chain of same-stage blocks is not a uniform computation over captures
-(the GPipe fold precondition). Grad twins register when the fused window
-kernel is active (Pallas custom calls have no AD rule); the XLA window
-path is differentiable as-is.
+(the GPipe fold precondition). Grad twins register for quantized
+weights (round() has zero gradient); the window path is differentiable
+as-is.
 """
 
 from __future__ import annotations
@@ -50,7 +50,6 @@ def make_swin_model(
     dtype=None,
     cfg: Optional[swin.SwinConfig] = None,
     with_categories: bool = True,
-    kernels: bool = True,
     quantize=False,
 ) -> JaxModel:
     """Build a registerable ``JaxModel`` for a Swin variant.
@@ -58,68 +57,32 @@ def make_swin_model(
     ``cfg`` overrides the variant table (tests use tiny geometries);
     ``params=None`` -> deterministic random init (zero-egress image;
     ``swin.from_torch`` loads real torchvision checkpoints, also via
-    serving ``--ckpt``). ``kernels=False`` forces the pure-XLA window
-    path (mesh-sharded serving: Pallas custom calls don't partition).
+    serving ``--ckpt``).
 
     ``quantize``: same contract as the ViT maker — ``True``/``"w8"`` =
-    weight-only int8 (every linear; the fused window kernel needs dense
-    qkv so it turns off), ``"w8a8"`` = fc1/fc2 int8 weights + dynamic
-    per-token activation quantization through the Pallas W8A8 MLP
-    kernel per stage (the attention window kernel stays on — its
-    weights remain dense). Opt-in accuracy class, ``--dtype int8w8a8``."""
+    weight-only int8 (every linear), ``"w8a8"`` = fc1/fc2 int8 weights +
+    dynamic per-token activation quantization (int8 x int8 -> int32
+    dots). Opt-in accuracy class, ``--dtype int8w8a8``."""
     import jax.numpy as jnp
 
     cfg = cfg or swin.VARIANTS[variant]
     if params is None:
         params = swin.init_params(jax.random.key(seed), cfg,
                                   dtype=dtype or jnp.float32)
-    from interactive_vit_tpu.ops.dispatch import (
-        default_mlp_impl, default_window_impl,
-    )
-
-    leaf_dtype = jax.tree.leaves(params)[0].dtype
-    mlp_impls = None
+    grad_layers = None
     if quantize:
-        from interactive_vit_tpu.ops.quant import quantize_tree
+        from interactive_vit_tpu.ops.quant import BLOCK_WEIGHTS, quantize_tree
 
         mode = "w8a8" if quantize == "w8a8" else "w8"
-        if mode == "w8a8" and not kernels:
-            # same contract as the ViT maker: without the Pallas MLP
-            # kernel the quantized fc1/fc2 would run the unfused XLA
-            # quantize-chain path — strictly slower than bf16 while
-            # still paying the accuracy perturbation (docs/kernels.md)
-            raise ValueError(
-                "swin w8a8 needs the Pallas MLP kernel (kernels=True); "
-                "mesh-sharded serving should use bfloat16 or int8 "
-                "weight-only")
-        if mode == "w8a8":
-            # fc1/fc2 only: the window kernel takes dense qkv/proj (the
-            # same policy as the ViT fused block — ops/dispatch docstring)
-            params = quantize_tree(
-                params, names=frozenset({"fc1_w", "fc2_w"}), mode=mode)
-            if kernels:
-                mlp_impls = [
-                    default_mlp_impl(
-                        "auto", dtype=leaf_dtype, d=cfg.stage_dim(s),
-                        mlp_dim=cfg.stage_dim(s) * cfg.mlp_ratio,
-                        quant="w8a8")
-                    for s in range(len(cfg.depths))]
-                if not any(mlp_impls):
-                    mlp_impls = None
-        else:
-            params = quantize_tree(params, mode=mode)
-            kernels = False  # quantized qkv dicts can't feed the kernel
-    window_impl = (default_window_impl("auto", dtype=leaf_dtype, cfg=cfg)
-                   if kernels else None)
-    # differentiable twins for gradient replays (saliency/dream): the
-    # fused kernels are Pallas custom calls with no AD rule (and round()
-    # has zero grad), so replays re-trace the pure-XLA path with inline
-    # dequantization (CLAUDE.md conventions)
-    grad_layers = None
-    if window_impl is not None or mlp_impls is not None or quantize:
+        names = (frozenset({"fc1_w", "fc2_w"}) if mode == "w8a8"
+                 else BLOCK_WEIGHTS)
+        params = quantize_tree(params, names=names, mode=mode)
+        # differentiable twins for gradient replays (saliency/dream):
+        # round() has zero gradient, so replays re-trace the plain path
+        # with inline dequantization (CLAUDE.md conventions)
         from interactive_vit_tpu.models.model_plugin import dequant_grad_twin
 
-        grad_layers = {ln: (dequant_grad_twin(f) if quantize else f)
+        grad_layers = {ln: dequant_grad_twin(f)
                        for ln, _extra, f in swin.layer_fns(cfg)}
     descriptions = {
         "transform": (f"Resize({int(cfg.img_size * 232 / 224)}, bicubic)"
@@ -149,8 +112,7 @@ def make_swin_model(
             if with_categories and cfg.num_classes else None)
     return SwinJaxModel(
         name=variant if cfg.name == variant else cfg.name,
-        layers=swin.layer_fns(cfg, window_impl=window_impl,
-                              mlp_impls=mlp_impls),
+        layers=swin.layer_fns(cfg),
         params=params,
         layer_params_fn=swin.layer_params,
         descriptions=descriptions,

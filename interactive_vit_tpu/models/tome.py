@@ -8,12 +8,9 @@ tokens. Post-hoc: no retraining, the speed/fidelity trade is a serving
 flag. No reference analog (fixed torch modules on CPU,
 ``/root/reference/main/context.py:79-88``).
 
-TPU notes: the shrinking token ladder is fully static (every shape a
-trace-time constant). The fused attention-block kernel implements
-ToMe's ``key_bias`` logit term and emits the head-mean key metric
-in-kernel (``fused_block.fused_attn_block(key_bias=, want_metric=)``),
-so merged blocks keep their scores VMEM-resident like the dense
-family; the XLA path remains the reference/GSPMD/f32 fallback.
+The shrinking token ladder is fully static (every shape a trace-time
+constant). Attention runs the plain path with ToMe's ``key_bias`` logit
+term (``ops/attention.attention_reference``).
 
 Graph surface (the interactive contract, extended):
 
@@ -92,7 +89,6 @@ def block(
     cfg: ToMeViTConfig,
     want_attn: bool = False,
     want_mean: bool = False,
-    block_impl=None,
 ) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray,
            Optional[jnp.ndarray], Optional[jnp.ndarray]]:
     """One ToMe block: proportional attention -> merge -> MLP.
@@ -100,38 +96,24 @@ def block(
     ``s`` [B, N] f32 token sizes (None = unmerged). Returns
     ``(y [B,N-r,D], s_new [B,N-r], lut [B,N], probs, pmean)`` — probs and
     pmean are PRE-merge attention maps over this block's input tokens.
-
-    ``block_impl``: the fused attention-block kernel
-    (``fused_attn_block`` — it implements ToMe's ``key_bias`` term and
-    emits the head-mean key metric in-kernel, so the scores never touch
-    HBM); None = the XLA reference path.
     """
     b, n, d = x.shape
     if s is None:
         s = jnp.ones((b, n), jnp.float32)
     kb = jnp.log(jnp.maximum(s, 1e-6))
-    if block_impl is not None:
-        res = block_impl(x, p, cfg.heads, cfg.ln_eps, want_attn=want_attn,
-                         want_mean=want_mean, key_bias=kb,
-                         want_metric=True)
-        x, probs = res[0], res[1]
-        pmean = res[2] if want_mean else None
-        metric = res[-1]
-    else:
-        xa = L.layer_norm(x, p["ln1_s"], p["ln1_b"], cfg.ln_eps)
-        q, k, v = attn_ops.qkv_proj(xa, p, cfg.heads)
-        out, probs = attn_ops.attention_reference(
-            q, k, v, want_attn=want_attn or want_mean, key_bias=kb)
-        out = out.transpose(0, 2, 1, 3).reshape(b, n, d)
-        x = x + L.linear(out, p["proj_w"], p["proj_b"])
-        pmean = None
-        if want_mean and probs is not None:
-            pmean = probs.astype(jnp.float32).mean(axis=1).astype(
-                probs.dtype)
-        if not want_attn:
-            probs = None
-        # the published metric: head-meaned attention keys
-        metric = k.astype(jnp.float32).mean(axis=1)      # [B, N, Dh]
+    xa = L.layer_norm(x, p["ln1_s"], p["ln1_b"], cfg.ln_eps)
+    q, k, v = attn_ops.qkv_proj(xa, p, cfg.heads)
+    out, probs = attn_ops.attention_reference(
+        q, k, v, want_attn=want_attn or want_mean, key_bias=kb)
+    out = out.transpose(0, 2, 1, 3).reshape(b, n, d)
+    x = x + L.linear(out, p["proj_w"], p["proj_b"])
+    pmean = None
+    if want_mean and probs is not None:
+        pmean = probs.astype(jnp.float32).mean(axis=1).astype(probs.dtype)
+    if not want_attn:
+        probs = None
+    # the published metric: head-meaned attention keys
+    metric = k.astype(jnp.float32).mean(axis=1)      # [B, N, Dh]
     lut, n_new = tome_ops.bipartite_matching(metric, cfg.r)
     if n_new != n:
         x, s = tome_ops.apply_merge(x, s, lut, n_new)
@@ -144,7 +126,6 @@ def forward(
     images: jnp.ndarray,
     cfg: ToMeViTConfig,
     want_attn: bool = False,
-    block_impl=None,
 ) -> Dict[str, Any]:
     """Monolithic forward (bench path): logits + optional ragged taps.
 
@@ -162,8 +143,7 @@ def forward(
     for p in params["blocks"]:
         n_in, s_prev = x.shape[1], s
         x, s, lut, probs, pmean = block(
-            p, x, s, cfg, want_attn=want_attn, want_mean=want_attn,
-            block_impl=block_impl)
+            p, x, s, cfg, want_attn=want_attn, want_mean=want_attn)
         if want_attn:
             attns.append(probs.astype(x.dtype))
             rollout = attn_ops.rollout_step(pmean, rollout)
@@ -184,7 +164,7 @@ def forward(
 # -- graph-node decomposition ---------------------------------------------------
 
 
-def layer_fns(cfg: ToMeViTConfig, block_impl=None):
+def layer_fns(cfg: ToMeViTConfig):
     """Tappable layer list (vit.layer_fns contract) with the ToMe
     channels: blocks chain ``s`` (sizes) and ``a`` (assignment) alongside
     ``o``, and add the ``merge`` color-map tap."""
@@ -208,7 +188,7 @@ def layer_fns(cfg: ToMeViTConfig, block_impl=None):
             s_prev = s
             y, s, lut, probs, pmean = block(
                 p, x, s, cfg, want_attn="attn" in want,
-                want_mean="r" in want, block_impl=block_impl)
+                want_mean="r" in want)
             outs = {"o": y, "s": s}
             if probs is not None and "attn" in want:
                 if sel is not None:

@@ -59,21 +59,18 @@ def make_tome_model(
     dtype=None,
     r: Optional[int] = None,
     with_categories: bool = True,
-    kernels: bool = True,
 ) -> JaxModel:
     """Build a registerable ToMe-ViT.
 
     ``params`` takes any plain-vit pytree of the same geometry (the whole
     point: post-hoc acceleration of an existing checkpoint); ``r``
-    overrides the variant's merge rate. ``kernels`` resolves the fused
-    attention-block kernel (key_bias + in-kernel metric) the same way
-    the vit plugin does; gradient replays re-trace XLA twins.
+    overrides the variant's merge rate. Attention runs the plain path
+    (proportional attention needs a per-key bias), which is
+    differentiable as-is.
     """
     import dataclasses
 
     import jax.numpy as jnp
-
-    from interactive_vit_tpu.ops.dispatch import default_block_impl
 
     cfg = tome.VARIANTS[variant]
     if r is not None:
@@ -81,18 +78,6 @@ def make_tome_model(
     if params is None:
         params = tome.init_params(jax.random.key(seed), cfg,
                                   dtype=dtype or jnp.float32)
-    leaf_dtype = jax.tree.leaves(params)[0].dtype
-    # sized at the ENTRY length (the largest N of the ladder): fits() is
-    # monotone in n, so every later (smaller) block fits too
-    block_impl = (default_block_impl("auto", dtype=leaf_dtype,
-                                     n=cfg.tokens, d=cfg.width,
-                                     heads=cfg.heads)
-                  if kernels else None)
-    grad_layers = None
-    if block_impl is not None:
-        # Pallas has no AD rule: saliency/dream replays re-trace the
-        # XLA-path twins (same contract as the vit plugin)
-        grad_layers = {ln: f for ln, _e, f in tome.layer_fns(cfg)}
     cats = None
     if with_categories and cfg.num_classes == 1000:
         from interactive_vit_tpu.models.labels import class_names
@@ -116,12 +101,11 @@ def make_tome_model(
     }
     return ToMeModel(
         name=cfg.name,
-        layers=tome.layer_fns(cfg, block_impl=block_impl),
+        layers=tome.layer_fns(cfg),
         params=params,
         layer_params_fn=tome.layer_params,
         descriptions=descriptions,
         category_names=cats,
-        grad_layers=grad_layers,
     )
 
 

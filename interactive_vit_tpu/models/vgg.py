@@ -7,8 +7,8 @@ The reference exploded torchvision VGG16 into 42 graph nodes named
 and saved the auto-generated chain to ``static/graphs/vgg16.json``. This
 module reproduces that EXACT node-name surface — the reference's saved
 vgg16.json evaluates against this server verbatim — with jax compute:
-convs lower onto the MXU via XLA, the whole tapped chain stages into one
-program.
+convs lower through XLA (cuDNN on the GPU), the whole tapped chain stages
+into one program.
 
 Weights: random init by default (zero-egress environment); the
 ``from_torchvision`` converter loads real torchvision ``vgg16`` state dicts.

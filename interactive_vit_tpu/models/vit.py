@@ -58,8 +58,6 @@ class ViTConfig:
     registers: int = 0
     # DINOv2 (Oquab et al. 2023) LayerScale: per-channel learned gamma on
     # each residual branch, init value here (1e-5 in the paper; 0 = off).
-    # LayerScale models run the XLA block path (the fused Pallas block
-    # bakes in the plain residual).
     layer_scale: float = 0.0
 
     def __post_init__(self):
@@ -170,7 +168,7 @@ def adapt_pos_embed(params: Params, cfg: ViTConfig) -> Params:
     The timm ``resample_abs_pos_embed`` construction (public): prefix
     rows (CLS, DIST) pass through; the grid part reshapes to
     [g, g, D] and resamples bicubically per side (separable — two small
-    MXU matmuls via ``ops.preprocess_mm.resize_matrix``, the same Keys
+    matmuls via ``ops.preprocess_mm.resize_matrix``, the same Keys
     a=-0.5 kernel torch's antialiased bicubic uses). Identity when the
     token count already matches, so it is safe on every load path."""
     pe = params["pos_emb"]
@@ -369,8 +367,6 @@ def block(
     want_attn: bool = False,
     attn_impl=None,
     n_real: Optional[int] = None,
-    block_impl=None,
-    mlp_impl=None,
     want_mean: bool = False,
     qkv_head_major: bool = False,
     attn_heads=None,
@@ -378,88 +374,47 @@ def block(
     """Pre-LN transformer block; optionally taps the attention maps.
 
     Returns ``(y, probs, mean)``: probs [B,H,N,N] when ``want_attn``, mean
-    [B,N,N] head-meaned maps (the rollout's input) when ``want_mean`` —
-    the fused kernels emit the mean in-kernel so rollout never re-reads
-    the per-head tensor from HBM.
+    [B,N,N] head-meaned maps (the rollout's input) when ``want_mean``.
 
     ``attn_heads``: optional static head subset for the probs tap — the
-    emitted maps become [B, len(attn_heads), N, N] (ascending head order),
-    and the fused kernels skip the non-selected heads' HBM writes
-    entirely (a UI viewing 2 of 16 heads stores 8x less; VERDICT r2 #3).
+    emitted maps become [B, len(attn_heads), N, N] (ascending head order).
 
     ``n_real``: set when x's token dim is padded (padded-domain execution);
     attention masks keys beyond it, everything else is row-local.
-    ``block_impl``: a fused whole-attention-branch kernel
-    (``ops/fused_block.fused_attn_block`` signature); when set it replaces
-    LN1+QKV+attention+proj+residual in one pallas call.
-    ``mlp_impl``: a fused MLP-branch kernel
-    (``ops/fused_mlp.fused_mlp_block`` signature) replacing
-    LN2+fc1+GELU+fc2+residual.
+    ``attn_impl``: the attention implementation (``ops/dispatch``); None
+    is the plain path.
     """
     pmean = None
-    if qkv_head_major and block_impl is not None:
-        # the fused kernels slice q/k/v at [3][H]-layout column blocks;
-        # head-major weights (the mesh TP layout) would be read wrong
-        raise ValueError("qkv_head_major is incompatible with fused block "
-                         "kernels (mesh serving disables them)")
-    if "ls1" in p and (block_impl is not None or mlp_impl is not None):
-        # the fused kernels bake in the plain residual add; silently
-        # skipping the LayerScale gammas would serve wrong activations
-        raise ValueError("LayerScale blocks (DINOv2) require the XLA "
-                         "block path (dispatch disables fused kernels "
-                         "for layer_scale configs)")
-    if n_real is not None and block_impl is not None:
-        # the fused kernels implement no key masking: padded rows get
-        # nonzero k/v through the LN bias and SILENTLY corrupt every real
-        # row's softmax — refuse rather than return wrong maps/logits
-        raise ValueError("padded-domain execution (n_real) is not "
-                         "supported by the fused block kernels; use the "
-                         "flash/mhsa path (attn_impl) which masks keys")
     sel = (tuple(sorted(set(int(h) for h in attn_heads)))
            if attn_heads is not None else None)
     if sel is not None and any(h < 0 or h >= cfg.heads for h in sel):
         raise ValueError(
             f"attn_heads {sorted(sel)} out of range for {cfg.heads} heads")
-    if block_impl is not None:
-        kw = {"attn_heads": sel} if sel is not None else {}
-        if want_mean:
-            x, probs, pmean = block_impl(x, p, cfg.heads, cfg.ln_eps,
-                                         want_attn, want_mean=True, **kw)
-        else:
-            x, probs = block_impl(x, p, cfg.heads, cfg.ln_eps, want_attn,
-                                  **kw)
-    else:
-        h, probs = attn_ops.mhsa(
-            L.layer_norm(x, p["ln1_s"], p["ln1_b"], cfg.ln_eps),
-            p, cfg.heads, want_attn=want_attn or want_mean,
-            attn_impl=attn_impl, n_real=n_real,
-            head_major=qkv_head_major,
-        )
-        if "ls1" in p:  # DINOv2 LayerScale on the attention branch
-            h = h * p["ls1"].astype(h.dtype)
-        x = x + h
-        if want_mean and probs is not None:
-            # mean over heads accumulates in f32, but the emitted map keeps
-            # the maps' own dtype — matching the fused kernels' bf16
-            # emission, and keeping rollout_step's precision policy keyed on
-            # the model's numeric class (an f32 working copy here would
-            # force HIGHEST rollout matmuls on bf16 models; at N=577 that
-            # chain reproducibly kills this backend's compile helper)
-            pmean = probs.astype(jnp.float32).mean(axis=1).astype(probs.dtype)
-        if not want_attn:
-            probs = None
-        elif sel is not None and probs is not None:
-            # XLA path: the full probs existed transiently anyway; only
-            # the selected heads persist as the tap
-            probs = probs[:, list(sel), :, :]
-    if mlp_impl is not None:
-        x = mlp_impl(x, p, cfg.ln_eps)
-    else:
-        m = L.mlp(L.layer_norm(x, p["ln2_s"], p["ln2_b"], cfg.ln_eps), p)
-        if "ls2" in p:  # DINOv2 LayerScale on the MLP branch
-            m = m * p["ls2"].astype(m.dtype)
-        x = x + m
-    return x, probs, pmean
+    h, probs = attn_ops.mhsa(
+        L.layer_norm(x, p["ln1_s"], p["ln1_b"], cfg.ln_eps),
+        p, cfg.heads, want_attn=want_attn or want_mean,
+        attn_impl=attn_impl, n_real=n_real,
+        head_major=qkv_head_major,
+    )
+    if "ls1" in p:  # DINOv2 LayerScale on the attention branch
+        h = h * p["ls1"].astype(h.dtype)
+    x = x + h
+    if want_mean and probs is not None:
+        # mean over heads accumulates in f32, but the emitted map keeps
+        # the maps' own dtype, so rollout_step's precision policy stays
+        # keyed on the model's numeric class (an f32 working copy here
+        # would force HIGHEST rollout matmuls on bf16 models)
+        pmean = probs.astype(jnp.float32).mean(axis=1).astype(probs.dtype)
+    if not want_attn:
+        probs = None
+    elif sel is not None and probs is not None:
+        # the full probs existed transiently anyway; only the selected
+        # heads persist as the tap
+        probs = probs[:, list(sel), :, :]
+    m = L.mlp(L.layer_norm(x, p["ln2_s"], p["ln2_b"], cfg.ln_eps), p)
+    if "ls2" in p:  # DINOv2 LayerScale on the MLP branch
+        m = m * p["ls2"].astype(m.dtype)
+    return x + m, probs, pmean
 
 
 def final_norm(params: Params, x: jnp.ndarray, cfg: ViTConfig) -> jnp.ndarray:
@@ -514,8 +469,6 @@ def forward(
     want_cls_trajectory: bool = False,
     attn_impl=None,
     pad_tokens: bool = False,
-    block_impl=None,
-    mlp_impl=None,
     qkv_head_major: bool = False,
     block_wrapper=None,
     attn_heads=None,
@@ -529,18 +482,17 @@ def forward(
 
     ``attn_heads``: static head subset for the attention taps — each
     layer's map becomes [B, len(attn_heads), N, N]; the rollout still
-    averages ALL heads (it feeds on the in-kernel head-mean). An EMPTY
-    tuple means rollout-only: no per-head probs are materialized at all.
+    averages ALL heads (it feeds on the head-mean). An EMPTY tuple means
+    rollout-only: no per-head probs are tapped.
 
     ``pad_tokens``: run the trunk in a PADDED TOKEN DOMAIN — pad the
     sequence once after embedding to a multiple of 128 and keep it padded
     through every block (attention masks keys >= n_real; padded rows carry
     garbage sliced away at tap extraction; numerically identical for real
     rows since masked keys underflow to exactly 0 in the softmax).
-    Measured OFF as default on v5e: the MLP dominates FLOPs and eats the
-    +30% padding (197->256) while XLA handles lane-hostile token counts
-    fine, and the Pallas kernels take exact shapes (Mosaic masks edge
-    blocks). Kept as an option for kernels/hardware where alignment wins.
+    Off by default: the MLP dominates FLOPs and would pay the +30%
+    padding (197->256), and XLA and the attention kernel take exact
+    token counts.
     """
     x = embed(params, images, cfg)
     n_real = x.shape[1]
@@ -560,7 +512,6 @@ def forward(
         def one(p, x):
             y, _, _ = block(
                 p, x, cfg, attn_impl=attn_impl, n_real=nr,
-                block_impl=block_impl, mlp_impl=mlp_impl,
                 qkv_head_major=qkv_head_major,
             )
             return y
@@ -578,8 +529,7 @@ def forward(
     for p in params["blocks"]:
         x, probs, pmean = block(
             p, x, cfg, want_attn=want_probs, attn_impl=attn_impl,
-            n_real=nr, block_impl=block_impl, mlp_impl=mlp_impl,
-            want_mean=want_attn, qkv_head_major=qkv_head_major,
+            n_real=nr, want_mean=want_attn, qkv_head_major=qkv_head_major,
             attn_heads=attn_heads if want_probs else None,
         )
         if want_probs:
@@ -604,8 +554,7 @@ def forward(
             # nothing (callers wanting one array can jnp.stack; taps ship
             # per-layer)
             out["attn"] = tuple(attns)
-        # rollout from the in-kernel head-means: never re-reads the
-        # [L,B,H,N,N] probs from HBM (measured ~2.3 ms/batch-32 on ViT-B)
+        # rollout from the per-layer head-means
         out["rollout"] = attn_ops.attention_rollout(means)
     if want_cls_trajectory:
         out["cls"] = jnp.stack(cls_traj)
@@ -620,10 +569,8 @@ def parse_attn_heads(node_params) -> Optional[Tuple[int, ...]]:
 
     A STATIC param (shape-changing, so it participates in the compile
     signature; selecting heads recompiles, scrubbing values does not).
-    "[]" (and "") mean ALL heads, as the UI placeholder documents — an
-    empty selection would otherwise build a zero-size Pallas output
-    block, a fatal compile error. Shared by every transformer family's
-    block nodes (vit, moe) so the UI control behaves identically.
+    "[]" (and "") mean ALL heads, as the UI placeholder documents.
+    Shared by every transformer family's block nodes (vit, moe) so the UI control behaves identically.
     """
     if node_params and node_params.get("attn_heads"):
         import json as _json
@@ -636,9 +583,9 @@ def parse_attn_heads(node_params) -> Optional[Tuple[int, ...]]:
 def rollout_carry(pmean: jnp.ndarray, ins, x: jnp.ndarray) -> jnp.ndarray:
     """The "r" channel: rollout flows along the chain — r_out =
     step(head_mean, r_in); an unwired r input means "this is the first
-    tapped block" (identity rollout). Feeds on the in-kernel head-mean,
-    so an "r"-only tap never materializes the [B,H,N,N] probs at all.
-    Shared by every transformer family's block nodes."""
+    tapped block" (identity rollout). Feeds on the head-mean, so an
+    "r"-only tap ships no [B,H,N,N] probs. Shared by every transformer
+    family's block nodes."""
     b, n = x.shape[0], x.shape[1]
     r_in = ins.get("r")
     if r_in is None:
@@ -646,8 +593,7 @@ def rollout_carry(pmean: jnp.ndarray, ins, x: jnp.ndarray) -> jnp.ndarray:
     return attn_ops.rollout_step(pmean, r_in).astype(x.dtype)
 
 
-def layer_fns(cfg: ViTConfig, attn_impl=None, block_impl=None,
-              mlp_impl=None, qkv_head_major: bool = False):
+def layer_fns(cfg: ViTConfig, attn_impl=None, qkv_head_major: bool = False):
     """The model as an ordered list of named tappable layers.
 
     Each entry is ``(layer_name, extra_out_channels, fn)`` with
@@ -684,8 +630,7 @@ def layer_fns(cfg: ViTConfig, attn_impl=None, block_impl=None,
             sel = parse_attn_heads(node_params)
             y, probs, pmean = block(
                 p, x, cfg, want_attn="attn" in want,
-                attn_impl=attn_impl, block_impl=block_impl,
-                mlp_impl=mlp_impl, want_mean="r" in want,
+                attn_impl=attn_impl, want_mean="r" in want,
                 qkv_head_major=qkv_head_major, attn_heads=sel,
             )
             outs = {"o": y}

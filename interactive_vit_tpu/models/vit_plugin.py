@@ -29,42 +29,23 @@ def make_vit_model(
     attn_impl=None,
     with_categories: bool = True,
     quantize: bool = False,
-    kernels: bool = True,
     tp_layout: bool = False,
-    block_kernel: str = "auto",
 ) -> JaxModel:
     """Build a registerable ``JaxModel`` for a ViT variant.
 
     ``params=None`` -> deterministic random init (no pretrained download in
     this environment; use ``models/weights.py`` converters to load real
-    checkpoints). ``attn_impl`` swaps the attention kernel (Pallas flash on
-    TPU; jnp reference on CPU). In non-f32 dtypes the fused attention-block
-    kernel is auto-selected per the dispatch policy.
+    checkpoints). ``attn_impl`` is the attention implementation
+    (``ops/dispatch.default_attn_impl``; None = the plain path).
 
     ``quantize=True`` (or ``"w8"``) -> weight-only int8 (``ops/quant.py``):
     linear weights stored int8 per-channel, dequantized inside the matmuls;
-    halves the weight HBM streaming that dominates small-batch interactive
+    halves the weight streaming that dominates small-batch interactive
     latency. ``quantize="w8a8"`` additionally quantizes activations
-    per-token at runtime so the matmuls run int8 x int8 on the MXU (2x the
-    bf16 rate on v5e) — a stronger accuracy perturbation, strictly opt-in.
-    The fused block kernels take dense weights, so quantized models run the
-    unfused (XLA/flash) path.
-
-    ``block_kernel``: fused-block dispatch policy override
-    (``ops/dispatch.default_block_impl`` names); "int8-scores" selects
-    the s8 score+PV-dot variant — an opt-in accuracy class whose served
-    maps differ from bf16 (``--attn int8-scores`` on the server).
+    per-token at runtime so fc1/fc2 run int8 x int8 -> int32 dots — a
+    stronger accuracy perturbation, strictly opt-in.
     """
     import jax.numpy as jnp
-
-    if block_kernel not in ("auto", "none", "reference") and (
-            (quantize and quantize != "w8a8") or not kernels):
-        # w8a8 is exempt: it quantizes fc1/fc2 only, the attention block
-        # stays dense, so the s8-scores fused block composes with it
-        raise ValueError(
-            f"block_kernel={block_kernel!r} requires kernels=True and "
-            f"dense attention weights (weight-only int8 runs the "
-            f"unfused path)")
 
     cfg = vit.resolve_variant(variant)
     if params is None:
@@ -78,90 +59,29 @@ def make_vit_model(
         params = vit.adapt_checkpoint(params, cfg)
     if tp_layout:
         # mesh TP serving: head-major qkv columns so the "model"-axis
-        # column sharding is head-aligned (parallel/mesh.py docstring);
-        # incompatible with the fused kernels' [3][H] column slicing
-        if kernels:
-            raise ValueError("tp_layout requires kernels=False "
-                             "(mesh serving disables them)")
+        # column sharding is head-aligned (parallel/mesh.py docstring)
         from interactive_vit_tpu.parallel.mesh import permute_qkv_head_major
 
         params = permute_qkv_head_major(params, cfg.heads)
-
-    from interactive_vit_tpu.ops.dispatch import (
-        default_block_impl, default_mlp_impl,
-    )
-
-    leaf_dtype = jax.tree.leaves(params)[0].dtype
-    mlp_impl = None
     if quantize:
         from interactive_vit_tpu.ops.quant import quantize_tree
 
         mode = quantize if isinstance(quantize, str) else "w8"
-        if mode == "w8a8" and not kernels:
-            # Pallas custom calls don't GSPMD-partition, so mesh-sharded
-            # serving disables kernels — and W8A8 without the fused MLP
-            # kernel degenerates to the naive XLA quantize-chain path,
-            # which is measured strictly SLOWER than bf16 (docs/kernels.md
-            # "W8A8 findings") while still paying the accuracy
-            # perturbation. Refuse rather than silently serve it.
-            raise ValueError(
-                "int8w8a8 requires the Pallas kernel path (kernels=True); "
-                "it is not available with mesh-sharded serving — "
-                "use dtype=bfloat16 (or int8 weight-only) on a mesh"
-            )
         if mode == "w8a8":
-            # W8A8 serves through the fused attention block (dense
-            # qkv/proj) + the Pallas W8A8 MLP kernel: quantizing the
-            # attention linears forces the slow unfused XLA path and the
-            # measured XLA quantize-chain breakage (ops/dispatch
-            # docstring), so only fc1/fc2 go int8
+            # fc1/fc2 only: the MLP holds two thirds of the block's
+            # matmul FLOPs; the attention linears stay dense
             params = quantize_tree(
                 params, names=frozenset({"fc1_w", "fc2_w"}), mode=mode)
-            # block_kernel composes here: fc1/fc2 are the quantized
-            # leaves, the attention block stays dense — so
-            # `--dtype int8w8a8 --attn int8-scores` runs s8 MXU dots in
-            # BOTH hot paths (MLP via the W8A8 kernel, scores via the
-            # flagged fused block)
-            block_impl = (
-                default_block_impl(block_kernel, dtype=leaf_dtype,
-                                   n=cfg.tokens, d=cfg.width,
-                                   heads=cfg.heads)
-                if kernels else None
-            )
-            if kernels:
-                mlp_impl = default_mlp_impl(
-                    "auto", dtype=leaf_dtype, d=cfg.width,
-                    mlp_dim=cfg.mlp_dim, quant="w8a8")
         else:
             params = quantize_tree(params, mode=mode)
-            block_impl = None
-    elif not kernels:
-        # GSPMD-partitionable path (mesh-sharded serving: Pallas custom
-        # calls don't partition); attention runs in XLA
-        block_impl = None
-    else:
-        block_impl = default_block_impl(
-            block_kernel, dtype=leaf_dtype, n=cfg.tokens, d=cfg.width,
-            heads=cfg.heads
-        )
-    if cfg.layer_scale:
-        # DINOv2 LayerScale: the fused kernels bake in the plain residual
-        # add — these configs run the XLA block path (vit.block applies
-        # the gammas there; the kernel guard in block() backstops this)
-        if quantize == "w8a8" or quantize == "int8w8a8":
-            raise ValueError("w8a8 needs the fused MLP kernel, which "
-                             "LayerScale (DINOv2) configs disable")
-        block_impl = None
-        mlp_impl = None
-    layers = vit.layer_fns(cfg, attn_impl=attn_impl, block_impl=block_impl,
-                           mlp_impl=mlp_impl, qkv_head_major=tp_layout)
+    layers = vit.layer_fns(cfg, attn_impl=attn_impl,
+                           qkv_head_major=tp_layout)
     # differentiable twins for gradient replays (saliency/dream jax.grad
     # through the blocks): Pallas kernels have no AD rule and quantized
     # matmuls round (zero gradient a.e.), so the replay re-traces the
-    # pure-XLA dense math — with quant-dict weights dequantized inline
+    # plain dense math — with quant-dict weights dequantized inline
     grad_layers = None
-    if (block_impl is not None or mlp_impl is not None
-            or attn_impl is not None or quantize):
+    if attn_impl is not None or quantize:
         from interactive_vit_tpu.models.model_plugin import dequant_grad_twin
 
         twins = vit.layer_fns(cfg, qkv_head_major=tp_layout)
@@ -200,7 +120,7 @@ def make_vit_model(
     # Chefer attention attribution (models/attrib.py): class-specific
     # grad x attention relevance over the whole trunk, one node. The
     # node re-traces the blocks in pure XLA under jax.grad, so it works
-    # for every serving path (fused kernels, quantized weights, TP
+    # for every serving path (attention kernels, quantized weights, TP
     # layout) via its own differentiable trunk.
     from interactive_vit_tpu.models.attrib import AttribNodeKind
 

@@ -1,1 +1,1 @@
-"""Ops tier: Pallas TPU kernels + jnp reference paths + graph node kinds."""
+"""Ops tier: jnp reference paths, the GPU attention kernel, graph node kinds."""

@@ -1,242 +1,84 @@
-"""Kernel dispatch: pick Pallas TPU kernels or jnp reference paths.
+"""Attention dispatch: the one place that decides which implementation runs.
 
-Every hot op keeps two implementations with identical contracts (the
-kernels are developed against the jnp ground truth; see ``ops/layers.py``).
-Dispatch policy:
+The plain jnp path (``ops/attention.attention_reference``) is the program
+itself: XLA compiles it on every backend. The backend string
+(``jax.default_backend()``) adds kernels on top of it:
 
-    "auto"      Pallas flash attention on TPU backends, jnp elsewhere
-    "flash"     force the Pallas kernel (interpret mode off-TPU)
-    "reference" force the jnp path
+    "gpu"   bf16 with maps on  -> the Pallas-Triton probs kernel
+                                  (``ops/gpu_attention``)
+            bf16 with maps off -> cuDNN fused attention through
+                                  ``jax.nn.dot_product_attention``
+    other   the plain path
+
+float32 never gets a kernel: it is the parity path (HIGHEST precision,
+``ops/layers.mm_precision``). Policy names:
+
+    "auto"       the table above
+    "reference"  force the plain path
 """
 
 from __future__ import annotations
 
-import functools
-import logging
-
 import jax
+import jax.numpy as jnp
 
-logger = logging.getLogger(__name__)
-
-
-def on_tpu() -> bool:
-    try:
-        return jax.devices()[0].platform == "tpu"
-    except Exception:  # noqa: BLE001 — backend init can fail in tests
-        return False
+POLICIES = ("auto", "reference")
 
 
-# Below this sequence length XLA's fused attention chain beats the Pallas
-# kernel on v5e (measured: ViT-B N=197 ref 15.6ms vs kernel 18.3ms per
-# batch-32; ViT-L N=577 kernel 39.7ms vs ref 60.4ms per batch-8). The
-# crossover sits where the N x N f32 intermediates stop fitting XLA's
-# fusion budget.
-FLASH_MIN_SEQ = 256
+def choose_attention(dtype, want_attn: bool, platform: str = None) -> str:
+    """Name the implementation ``auto_attention`` runs for one call.
+
+    Returns "gpu_probs" (the Pallas-Triton kernel), "cudnn" (library
+    fused attention) or "reference". ``platform`` defaults to
+    ``jax.default_backend()``.
+    """
+    platform = platform or jax.default_backend()
+    if platform != "gpu" or jnp.dtype(dtype) != jnp.dtype(jnp.bfloat16):
+        return "reference"
+    return "gpu_probs" if want_attn else "cudnn"
 
 
 def auto_attention(q, k, v, want_attn=False, n_real=None):
-    """Sequence-length-aware dispatch (decided at trace time: shapes are
-    static under jit)."""
+    """Shape- and backend-aware attention (decided at trace time: shapes,
+    dtypes and the backend are static under jit). Same contract as
+    ``attention_reference``: inputs [B, H, N, Dh], returns
+    ``(out, probs | None)``."""
     from interactive_vit_tpu.ops.attention import attention_reference
-    from interactive_vit_tpu.ops.flash_attention import flash_mhsa
 
-    if on_tpu() and q.shape[2] >= FLASH_MIN_SEQ:
-        return flash_mhsa(q, k, v, want_attn=want_attn, n_real=n_real)
+    impl = choose_attention(q.dtype, want_attn)
+    if impl == "gpu_probs":
+        from interactive_vit_tpu.ops.gpu_attention import attention_probs
+
+        return attention_probs(q, k, v, n_real=n_real)
+    if impl == "cudnn":
+        return cudnn_attention(q, k, v, n_real=n_real), None
     return attention_reference(q, k, v, want_attn=want_attn, n_real=n_real)
 
 
-def default_block_impl(name: str = "auto", dtype=None, n: int = 0,
-                       d: int = 0, heads: int = 0):
-    """Resolve the fused attention-BLOCK kernel policy.
-
-    "auto": the Pallas fused block (LN+QKV+softmax+proj+residual, VMEM-
-    resident scores, in-kernel map emission) on TPU in bf16 when it fits —
-    measured 13.8 -> 12.95 ms/batch-32 on ViT-B/16 with maps vs the XLA
-    path. f32 excluded: HIGHEST-precision dots inside Mosaic compile
-    pathologically slowly and the parity path doesn't need the kernel.
-    """
-    if name in ("none", "reference"):
-        return None
-    from interactive_vit_tpu.ops.fused_block import (
-        fits, fits_headwise, fused_attn_block, headwise_attn_block,
-    )
-
-    if name == "fused":
-        return fused_attn_block
-    if name == "headwise":
-        return headwise_attn_block
-    if name in ("int8-scores", "int8-scores-qk"):
-        # opt-in accuracy class: s8 dots inside the fused block
-        # (docs/kernels.md "dh=64 attention-dot probes"). "-qk" limits
-        # quantization to the score dot (PV stays bf16 — half the VPU
-        # quantize/dequant overhead, half the accuracy perturbation).
-        # The fit check carries an s8-specific margin: the path keeps
-        # the s32 scores + f32 dequant + s8 q/k copies live together,
-        # so the bf16 envelope would admit boundary geometries that
-        # breach scoped VMEM (a deterministic compile kill, CLAUDE.md).
-        import jax.numpy as jnp
-
-        if dtype is not None and jnp.dtype(dtype) == jnp.float32:
-            # same exclusion as "auto": HIGHEST-precision Mosaic dots
-            # (the kernel's f32 qkv/proj path) compile pathologically —
-            # an explicit flag fails loudly instead of hanging a boot
-            raise ValueError(
-                f"{name} requires a bf16-class dtype (f32 fused-block "
-                f"compiles pathologically; use --dtype bfloat16)")
-        if d and n and not fits(n, d, heads, dtype, int8_scores=True):
-            raise ValueError(
-                f"{name} fused block does not fit VMEM for n={n}, "
-                f"d={d}; the headwise kernel has no s8 variant")
-        return functools.partial(fused_attn_block, int8_scores=True,
-                                 int8_pv=(name == "int8-scores"))
-    if name == "auto":
-        import jax.numpy as jnp
-
-        if on_tpu() and dtype is not None and dtype != jnp.float32 and n:
-            if fits(n, d, heads, dtype):
-                return fused_attn_block
-            if fits_headwise(n, d, heads, dtype):
-                # per-head grid: covers models whose whole-image working
-                # set exceeds VMEM (ViT-L/16@384 w/ maps: +5% over the
-                # row-resident kernel, and LN/QKV/proj fuse in)
-                return headwise_attn_block
-        return None
-    raise ValueError(f"unknown block impl {name!r}")
-
-
-def default_window_impl(name: str = "auto", dtype=None, cfg=None):
-    """Resolve the fused Swin window-attention kernel policy.
-
-    "auto": the Pallas fused window branch (QKV + bias/mask + softmax +
-    proj, VMEM-resident scores, NHWC strips consumed through a free HBM
-    reshape) on TPU in bf16 when every stage's strip fits VMEM — the XLA
-    swin path is 24% "data formatting" (window partition/merge transpose
-    chains; docs/kernels.md "Swin on v5e"). f32 excluded for the same
-    reason as the ViT fused block (HIGHEST-precision Mosaic dots compile
-    pathologically; the parity path doesn't need the kernel).
-    """
-    if name in ("none", "reference"):
-        return None
-    from interactive_vit_tpu.ops.fused_window import fits, fused_window_attn
-
-    if name == "fused":
-        return fused_window_attn
-    if name == "auto":
-        import jax.numpy as jnp
-
-        if on_tpu() and dtype is not None and dtype != jnp.float32 and cfg:
-            if all(fits(cfg.stage_res(s), cfg.window, cfg.stage_dim(s),
-                        cfg.heads[s], dtype)
-                   for s in range(len(cfg.depths))):
-                return fused_window_attn
-        return None
-    raise ValueError(f"unknown window impl {name!r}")
-
-
-def default_mlp_impl(name: str = "auto", dtype=None, d: int = 0,
-                     mlp_dim: int = 0, quant: str = ""):
-    """Resolve the fused MLP-branch kernel policy.
-
-    The bf16 fused MLP measured SLOWER than XLA's single big matmul
-    (ops/fused_mlp.py docstring) so "auto" returns None for dense models.
-    For W8A8 models (``quant="w8a8"``) the Pallas kernel is the ONLY way
-    to reach the int8 MXU rate without XLA's quantize-chain fusion
-    breakage (measured ~4.5 ms/batch-32 of copies + reduce fusions), so
-    "auto" selects ``fused_mlp_w8a8_block`` on TPU when it fits VMEM.
-    """
-    if name in ("none", "reference"):
-        return None
-    from interactive_vit_tpu.ops import fused_mlp as fm
-
-    if name == "fused":
-        if d and mlp_dim and not fm.fits(d, mlp_dim, dtype):
-            # same policy as the w8a8 branch: a scoped-VMEM breach is a
-            # deterministic COMPILE failure that kills the whole program
-            # (CLAUDE.md) — fail loudly instead of letting it through
-            raise ValueError(
-                f"fused MLP kernel does not fit VMEM for d={d}, "
-                f"mlp_dim={mlp_dim}; use mlp_impl='auto'/'reference'"
-            )
-        return fm.fused_mlp_block
-    if name == "w8a8":
-        bq = fm.pick_block_q_w8a8(d, mlp_dim)
-        if not bq:
-            # do NOT override the estimator: a config it rejects breaches
-            # scoped VMEM, which is a deterministic COMPILE failure that
-            # kills the whole program (CLAUDE.md) — fail loudly instead
-            raise ValueError(
-                f"W8A8 MLP kernel does not fit VMEM for d={d}, "
-                f"mlp_dim={mlp_dim} (int8 weights alone exceed the "
-                f"budget); use mlp_impl='auto' to fall back to XLA"
-            )
-        return functools.partial(fm.fused_mlp_w8a8_block, block_q=bq)
-    if name == "auto":
-        import jax.numpy as jnp
-
-        if (quant == "w8a8" and on_tpu() and dtype is not None
-                and dtype != jnp.float32):
-            bq = fm.pick_block_q_w8a8(d, mlp_dim)
-            if bq:
-                return functools.partial(fm.fused_mlp_w8a8_block,
-                                         block_q=bq)
-        return None
-    raise ValueError(f"unknown mlp impl {name!r}")
-
-
-def default_train_attn_impl(name: str = "auto", n_devices: int = 1,
-                            dtype=None, cfg=None):
-    """Resolve the attention implementation for TRAIN steps.
-
-    "auto" picks the custom-VJP flash kernel (``ops/attention_vjp``) on a
-    single TPU device with bf16 params — profiled 11-13 TF/s for XLA's
-    attention autodiff vs 171-180 TF/s for the surrounding dense matmuls
-    (the f32 [B,H,N,N] HBM round-trips; r3_train_profile 2026-08-19).
-    Mesh runs keep the XLA path: Pallas custom calls don't partition
-    under GSPMD. f32 excluded: HIGHEST-precision dots inside Mosaic
-    compile pathologically slowly (same policy as the fused block).
-
-    ``cfg``: the model config, when known — swin trains windowed
-    attention (``parallel.train.loss_fn`` ignores attn_impl there), so
-    "auto" resolves to None and an explicit "flash_vjp" is an error
-    rather than a silently-ignored flag.
-    """
-    if cfg is not None:
-        from interactive_vit_tpu.models import swin
-
-        if isinstance(cfg, swin.SwinConfig):
-            if name == "flash_vjp":
-                raise ValueError(
-                    "swin trains shifted-window attention; the flash_vjp "
-                    "train kernel does not apply (loss_fn ignores it)")
-            return None
-    if name in ("reference", "none"):
-        return None
-    from interactive_vit_tpu.ops.attention_vjp import trainable_flash_mhsa
-
-    if name == "flash_vjp":
-        return trainable_flash_mhsa
-    if name == "auto":
-        import jax.numpy as jnp
-
-        if on_tpu() and n_devices == 1 and dtype == jnp.bfloat16:
-            return trainable_flash_mhsa
-        return None
-    raise ValueError(f"unknown train attention impl {name!r}")
+def cudnn_attention(q, k, v, n_real=None):
+    """Maps-off attention through cuDNN's fused kernel (a library call).
+    ``jax.nn.dot_product_attention`` takes [B, N, H, Dh]."""
+    t = lambda a: a.transpose(0, 2, 1, 3)  # noqa: E731
+    n = q.shape[2]
+    lengths = None
+    if n_real is not None and n_real < n:
+        lengths = jnp.full((q.shape[0],), n_real, jnp.int32)
+    out = jax.nn.dot_product_attention(
+        t(q), t(k), t(v), key_value_seq_lengths=lengths,
+        implementation="cudnn")
+    return t(out)
 
 
 def default_attn_impl(name: str = "auto"):
     """Resolve an attention implementation by policy name.
 
-    Returns None for the jnp reference path (``attention.mhsa`` treats None
-    as "use attention_reference"), or a callable
-    (q, k, v, want_attn, n_real=None) -> (out, probs|None).
+    Returns None for the plain path (``attention.mhsa`` treats None as
+    "use attention_reference") or ``auto_attention``. Names of kernels
+    that no longer exist raise.
     """
     if name == "reference":
         return None
-    if name == "flash":
-        from interactive_vit_tpu.ops.flash_attention import flash_mhsa
-
-        return flash_mhsa
     if name == "auto":
         return auto_attention
-    raise ValueError(f"unknown attention impl {name!r}")
+    raise ValueError(f"unknown attention policy {name!r}; "
+                     f"choose from {POLICIES}")

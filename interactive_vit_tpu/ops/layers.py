@@ -1,13 +1,12 @@
 """Transformer layer ops — jnp reference implementations.
 
-These are the semantic ground truth for the Pallas kernels in
-``ops/flash_attention.py`` / ``ops/fused_block.py``: every kernel must match
-these to <=1e-4 in f32 (the BASELINE.json parity contract). They are also
-the CPU-backend execution path.
+These are the program on every backend, and the ground truth for the
+attention kernel in ``ops/gpu_attention.py``. In f32 they hold the 1e-4
+parity contract (BASELINE.json).
 
 The reference app had no transformer at all (SURVEY.md §0 — its only model
 was torchvision VGG16 run layer-at-a-time on CPU torch,
-``/root/reference/main/context.py:79-88``); these ops are the TPU-native
+the reference's ``main/context.py:79-88``); these ops are the
 capability mandated by BASELINE.json's north star.
 
 Conventions:
@@ -30,11 +29,12 @@ Params = Dict[str, jnp.ndarray]
 def mm_precision(*xs: jnp.ndarray) -> jax.lax.Precision:
     """Matmul precision policy for the 1e-4 parity contract.
 
-    f32 inputs -> HIGHEST: this backend's DEFAULT does bf16-truncated passes
-    even for f32 operands (measured ~2e-2 abs err on a 64x64 matmul), which
-    silently breaks parity. bf16 inputs -> DEFAULT: the MXU multiplies bf16
-    natively and accumulates f32 (via preferred_element_type), which is the
-    perf path — full speed, and exact at bf16 input precision.
+    f32 inputs -> HIGHEST: DEFAULT lets the backend use reduced-precision
+    passes for f32 operands (TF32 tensor cores on a GPU, about three
+    decimal digits), which silently breaks parity. bf16 inputs -> DEFAULT:
+    the tensor cores multiply bf16 natively and accumulate f32 (via
+    preferred_element_type), which is the fast path and exact at bf16
+    input precision.
     """
     if any(x.dtype == jnp.float32 for x in xs):
         return jax.lax.Precision.HIGHEST
@@ -42,10 +42,9 @@ def mm_precision(*xs: jnp.ndarray) -> jax.lax.Precision:
 
 
 def precision_for(dtype) -> jax.lax.Precision:
-    """``mm_precision`` keyed by dtype instead of arrays — the form the
-    Pallas kernels need at closure-build time. Single source of the
-    policy: f32 -> HIGHEST (this backend's DEFAULT truncates f32 passes
-    to bf16), everything else -> DEFAULT."""
+    """``mm_precision`` keyed by dtype instead of arrays, for code that
+    builds closures before it has arrays. Same policy: f32 -> HIGHEST,
+    everything else -> DEFAULT."""
     return (jax.lax.Precision.HIGHEST if dtype == jnp.float32
             else jax.lax.Precision.DEFAULT)
 
@@ -64,11 +63,9 @@ def gelu(x: jnp.ndarray) -> jnp.ndarray:
     """GELU, precision-adaptive.
 
     f32 -> exact erf GELU (matches torch ``nn.GELU()`` default; the 1e-4
-    parity contract runs in f32). bf16 -> tanh approximation: erf is
-    transcendental-heavy on the VPU and measurably hot (ViT-B/16 batch-32
-    on v5e: 17.3 -> 15.0 ms/batch switching to tanh, +15% throughput) while
-    the erf-vs-tanh difference (~1e-3 relative) sits below bf16 activation
-    noise.
+    parity contract runs in f32). bf16 -> tanh approximation: cheaper
+    than erf, and the erf-vs-tanh difference (~1e-3 relative) sits below
+    bf16 activation noise.
     """
     return jax.nn.gelu(x, approximate=x.dtype != jnp.float32)
 
@@ -84,8 +81,8 @@ def linear(x: jnp.ndarray, w, b: Optional[jnp.ndarray]) -> jnp.ndarray:
     )
 
     if is_w8a8(w):
-        # int8 x int8 -> int32 MXU path (2x bf16 rate on v5e); dynamic
-        # per-token activation scales, opt-in accuracy class (ops/quant.py)
+        # int8 x int8 -> int32 dot; dynamic per-token activation
+        # scales, opt-in accuracy class (ops/quant.py)
         return linear_w8a8(x, w, b)
     if is_quantized(w):
         y = jnp.dot(x, w[QKEY].astype(x.dtype),
@@ -126,11 +123,10 @@ def patchify(images: jnp.ndarray, patch: int) -> jnp.ndarray:
 
 
 def patch_embed(images: jnp.ndarray, p: Params, patch: int) -> jnp.ndarray:
-    """Patchify + project: ONE big [B*N, C*p*p] @ [C*p*p, D] MXU matmul.
+    """Patchify + project: ONE big [B*N, C*p*p] @ [C*p*p, D] matmul.
 
-    Equivalent to the usual stride-p conv but expressed as a matmul, which
-    is the shape the MXU wants (BASELINE.json: "patch embedding is one
-    HBM-resident matmul").
+    Equivalent to the usual stride-p conv but expressed as a matmul
+    (BASELINE.json: "patch embedding is one HBM-resident matmul").
     """
     patches = patchify(images, patch)
     return linear(patches, p["w"], p["b"])

@@ -3,7 +3,7 @@
 The reference ran these ops *client-side* in WebGPU WGSL shaders
 (``/root/reference/main/static/main/nodes/*.js``) and only model layers on
 the server. Here every op is a jnp function, so a whole saved graph — image
-source through viewers — stages into one fused XLA program on TPU. That
+source through viewers — stages into one fused XLA program. That
 realizes the reference's own roadmap item "server-side graph"
 (``/root/reference/todo.md:13``) and removes the client<->server tensor
 round-trips from the hot path.
@@ -275,8 +275,8 @@ class Conv2dNode(NodeKind):
     Matches the WGSL kernel semantics (``conv2d_node.js:5-31,175-178``):
     input [C,H,W] or [H,W]; each channel convolved with the same k x k
     matrix; output spatial dims shrink by 2*(k//2). The matrix travels
-    base64-encoded f32 (``conv2d_node.js:214-227``). On TPU this lowers to
-    an XLA conv that tiles onto the MXU.
+    base64-encoded f32 (``conv2d_node.js:214-227``). This lowers to one
+    XLA conv.
     """
 
     def __init__(self) -> None:
@@ -485,10 +485,10 @@ class PcaViewNode(NodeKind):
     [B,3,g,g] in [0,1], viewable directly in ``img_view`` and resizable
     with the builtin ``resize`` node.
 
-    TPU notes: the covariance is a [D,D] einsum (MXU) and the top-3
-    directions come from matmul-only subspace iteration (``_pca_top3``) —
-    XLA's eigh (QDWH) is avoided on purpose (minutes of compile + an
-    iteration-heavy device loop; measured 2026-08-16). The whole view
+    Notes: the covariance is a [D,D] einsum and the top-3 directions come
+    from matmul-only subspace iteration (``_pca_top3``) — XLA's eigh is
+    avoided on purpose (long compiles and an iteration-heavy device loop
+    on the backend this was first built for). The whole view
     stages into the same program as the model, so toggling it costs one
     tap recompile, not a host round-trip. No reference analog (its viewers
     were client-side canvas composites, ``nodes/multi_view.js``); this
@@ -777,7 +777,7 @@ class SaliencyNode(_GradNode):
     node's ancestor cone as a closed function of one graph input and
     ``jax.grad``s it INSIDE the same jitted program — forward pass,
     backward pass, and heatmap render fuse into one XLA program, and the
-    backward matmuls run on the MXU like everything else.
+    backward matmuls run on the device like everything else.
 
     Wiring: input "o" is any tensor downstream of the image — typically
     the classifier logits (``vit_*:head``) or an embedding. Outputs:
@@ -994,7 +994,7 @@ class DreamNode(_GradNode):
     target of the wired tensor — "what does class k look like to this
     model" — as a ``lax.scan`` of normalized gradient-ascent steps INSIDE
     the staged program: the whole optimization loop is one XLA program on
-    the MXU, not a host-side training loop. Another capability class the
+    the device, not a host-side training loop. Another capability class the
     reference could not express (``torch.no_grad`` server,
     ``/root/reference/main/context.py:79-88``).
 
@@ -1096,7 +1096,7 @@ class OcclusionNode(_GradNode):
     fns (``differentiates = False``) and quantized models need no grad
     twin. All P = gh*gw masked forwards run as one ``lax.scan`` INSIDE
     the staged program: the whole sensitivity sweep is a single XLA
-    program on the MXU, not a host loop of requests. No reference analog
+    program on the device, not a host loop of requests. No reference analog
     (its server computed single forwards under ``torch.no_grad``,
     ``/root/reference/main/context.py:79-88``).
 

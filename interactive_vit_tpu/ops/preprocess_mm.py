@@ -1,10 +1,10 @@
-"""Fused preprocessing as MXU matmuls: resize + crop + normalize + patchify.
+"""Fused preprocessing as matmuls: resize + crop + normalize + patchify.
 
-The BASELINE north star calls for preprocessing fused into the TPU program.
-The TPU-native trick: antialiased bilinear resize is SEPARABLE, so
+The BASELINE north star calls for preprocessing fused into the device
+program. The trick: antialiased bilinear resize is SEPARABLE, so
 ``resize(x)`` is ``R_h @ x @ R_w^T`` with small dense weight matrices — a
-gather-free formulation that runs on the MXU instead of scattering on the
-VPU. The center crop folds in for free as row selection of R (we multiply
+gather-free formulation that runs as matmuls instead of gathers. The
+center crop folds in for free as row selection of R (we multiply
 by exactly the rows that survive the crop), the per-channel normalization is
 a trailing affine XLA fuses into the matmul epilogue, and patchify+embed is
 already one matmul (``ops/layers.patch_embed``). Net: the whole eval
@@ -88,7 +88,7 @@ def preprocess_mm(
     resize_to: Optional[int] = None,
     method: str = "bilinear",
 ) -> jnp.ndarray:
-    """resize -> center crop -> normalize via two MXU matmuls.
+    """resize -> center crop -> normalize via two matmuls.
 
     [B, C, H, W] or [C, H, W] in [0, 1] -> [..., C, size, size].
     ``method="bicubic"`` selects the PIL-exact Keys a=-0.5 kernel

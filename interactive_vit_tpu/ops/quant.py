@@ -1,15 +1,15 @@
 """Weight-only int8 quantization for the serving path.
 
 Interactive serving runs at small effective batch (1-8 concurrent graph
-evals), where the TPU step is dominated by streaming weights from HBM, not
-by MXU flops. Storing linear-layer weights as symmetric per-output-channel
-int8 halves that traffic; activations stay bf16 and the scale is applied
+evals), where a step is dominated by streaming weights from device
+memory, not by matmul flops. Storing linear-layer weights as symmetric
+per-output-channel int8 halves that traffic; activations stay bf16 and the scale is applied
 AFTER the matmul (``(x @ q) * s == x @ (q * s)`` for a per-column scale),
 so the dequantized weight matrix is never materialized — XLA fuses the
 s8->bf16 convert into the matmul's weight read.
 
 The reference has no quantization (CPU f32 torch end-to-end,
-``/root/reference/main/context.py:79-88``); this is a TPU-native serving
+the reference's ``main/context.py:79-88``); this is a serving
 extension. Accuracy caveat: per-channel weight-only int8 on ViTs is
 empirically near-lossless, but this image has no pretrained weights or
 eval data (zero egress), so the shipped guarantee is the *numerical*
@@ -31,8 +31,8 @@ QKEY, SKEY = "int8_q", "int8_s"
 #: but under DIFFERENT keys so the mode is *structural* — pytree key
 #: presence is static under jit (params ride as jit arguments on the bench
 #: path, so a string/flag leaf would fail tracing). With W8A8 the matmul
-#: itself runs int8 x int8 -> int32 on the MXU (2x the bf16 rate on v5e);
-#: activations are dynamically per-token quantized at trace time.
+#: itself runs int8 x int8 -> int32 (XLA's integer dot); activations are
+#: dynamically per-token quantized at trace time.
 AQKEY, ASKEY = "int8a8_q", "int8a8_s"
 
 
@@ -72,8 +72,7 @@ def quantize_acts(x: jnp.ndarray):
     x [..., D] -> (q int8 [..., D], s f32 [..., 1]) with
     q = round(x / s), s = max_d |x[..., d]| / 127. Runs inside jit: the
     abs-max reduce + scale + round + clip chain fuses into the producing
-    fusion (one extra VPU pass over the activations — negligible next to
-    the int8 MXU matmul it enables).
+    fusion (one extra elementwise pass over the activations).
     """
     xf = x.astype(jnp.float32)
     s = jnp.max(jnp.abs(xf), axis=-1, keepdims=True) / 127.0
@@ -83,9 +82,9 @@ def quantize_acts(x: jnp.ndarray):
 
 
 def linear_w8a8(x: jnp.ndarray, w: Dict[str, jnp.ndarray], b=None):
-    """x @ W + b with BOTH operands int8: the MXU runs s8 x s8 -> s32 at
-    2x its bf16 rate on v5e. Dequantization is a rank-1 rescale of the
-    int32 accumulator: y = acc * (s_x[..., None] * s_w[None, :]).
+    """x @ W + b with BOTH operands int8: an s8 x s8 -> s32 dot in XLA.
+    Dequantization is a rank-1 rescale of the int32 accumulator:
+    y = acc * (s_x[..., None] * s_w[None, :]).
 
     Accuracy class: dynamic per-token activation + per-output-channel
     weight symmetric int8 (the standard W8A8 recipe). Unlike weight-only
@@ -108,38 +107,12 @@ def linear_w8a8(x: jnp.ndarray, w: Dict[str, jnp.ndarray], b=None):
 BLOCK_WEIGHTS = frozenset({"qkv_w", "proj_w", "fc1_w", "fc2_w"})
 
 
-def quant_rows_mosaic(xf):
-    """f32 [R, C] -> (int8, f32 [R, 1] scale); per-row symmetric.
-
-    The IN-KERNEL quantizer shared by the W8A8 MLP kernel
-    (``ops/fused_mlp``) and the s8-scores fused block
-    (``ops/fused_block``) — ONE implementation so their semantics
-    cannot drift. Mosaic has no round-half-even lowering, so
-    floor(x+0.5) (round-half-UP; the divergence from
-    ``quantize_acts``'s jnp.round is confined to exact .5 lattice
-    points of x/scale — a 1-ulp int8 difference)."""
-    s = jnp.max(jnp.abs(xf), axis=-1, keepdims=True) / 127.0
-    s = jnp.where(s == 0, 1.0, s)
-    q = jnp.clip(jnp.floor(xf / s + 0.5), -127, 127).astype(jnp.int8)
-    return q, s
-
-
-def quant_cols_mosaic(xf):
-    """f32 [R, C] -> (int8, f32 [1, C] scale); per-column symmetric
-    (the s8 PV dot's v quantizer). Same rounding contract as
-    ``quant_rows_mosaic``."""
-    s = jnp.max(jnp.abs(xf), axis=0, keepdims=True) / 127.0
-    s = jnp.where(s == 0, 1.0, s)
-    q = jnp.clip(jnp.floor(xf / s + 0.5), -127, 127).astype(jnp.int8)
-    return q, s
-
-
 def quantize_tree(params: Any, names: frozenset = BLOCK_WEIGHTS,
                   mode: str = "w8") -> Any:
     """Replace 2-D float weight leaves named in ``names`` with their int8
     form; everything else (norms, biases, embeddings, first/last-layer
     weights) is untouched. ``mode``: "w8" (weight-only) or "w8a8"
-    (int8 activations too — 2x MXU rate, opt-in accuracy class)."""
+    (int8 activations too — opt-in accuracy class)."""
 
     def walk(obj: Any) -> Any:
         if isinstance(obj, dict):

@@ -1,4 +1,4 @@
-"""Token merging (ToMe) — static-shape bipartite soft matching for TPU.
+"""Token merging (ToMe) — static-shape bipartite soft matching.
 
 Inference-time acceleration (Bolya et al. 2023, "Token Merging: Your ViT
 But Faster"): between a block's attention and MLP, the ``r`` most similar
@@ -8,21 +8,21 @@ server evaluates fixed torch modules under ``torch.no_grad`` on CPU,
 ``/root/reference/main/context.py:79-88`` — no model surgery, no token
 reduction anywhere).
 
-The TPU shape of the algorithm — and why it fits this backend:
+The static shape of the algorithm — and why it fits a compiled backend:
 
 * **Static shapes end-to-end.** ``r`` is a trace-time constant, so block
   ``i`` always maps ``[B, N_i, D] -> [B, N_i - r, D]``: XLA sees a fixed
-  shape ladder, every matmul stays MXU-tiled, nothing recompiles at
+  shape ladder, every matmul keeps a static shape, nothing recompiles at
   serve time.
 * **Matching is one matmul + one sort.** The bipartite scores are a
-  single ``[Na, Dk] x [Dk, Nb]`` dot (MXU) and partner selection is an
+  single ``[Na, Dk] x [Dk, Nb]`` dot and partner selection is an
   ``argsort`` over ``Na`` scalars — no data-dependent control flow.
 * **Merging is a one-hot matmul, not a scatter.** ``apply_merge``
   materializes the lut as a one-hot assignment matrix and folds rows
-  with an einsum — an MXU-tiled ``[n_new, N] x [N, D]`` contraction
-  (~2% extra model FLOPs), where the scatter-add formulation lowers to
-  serialized dense-update loops on TPU. Same rewrite that fixed the MoE
-  dispatch (docs/kernels.md "MoE dispatch"); the scatter survives only
+  with an einsum — a ``[n_new, N] x [N, D]`` contraction (~2% extra
+  model FLOPs), where the scatter-add formulation lowered to serialized
+  dense-update loops on the backend this was first built for. Same
+  rewrite that fixed the MoE dispatch (docs/kernels.md "MoE dispatch"); the scatter survives only
   in the numpy reference.
 
 Semantics (pinned against ``bipartite_merge_reference``, a per-sample
@@ -128,10 +128,9 @@ def apply_merge(
     carry, and anything else that must merge consistently with the
     tokens. Returns ``(merged [B, n_new, ...], s_new [B, n_new])``.
 
-    TPU shape: the fold is an einsum against the one-hot assignment
-    matrix (MXU), not a scatter-add — XLA lowers batched scatters to
-    serialized update loops on this backend (measured 2x whole-model
-    regression vs dense before the rewrite; the same fix as the MoE
+    The fold is an einsum against the one-hot assignment matrix, not a
+    scatter-add: batched scatters lowered to serialized update loops on
+    the backend this was first built for (the same fix as the MoE
     dispatch einsums).
     """
     b, n = values.shape[:2]
@@ -141,9 +140,9 @@ def apply_merge(
               == jnp.arange(n_new, dtype=lut.dtype)).astype(jnp.float32)
     s_new = jnp.einsum("bnj,bn->bj", onehot, sf,
                        precision=mm_precision(onehot, sf))
-    # value fold in the values' compute class: bf16 inputs ride the MXU
-    # at DEFAULT (f32 accumulation is the MXU's native behavior; 0/1
-    # one-hot entries are exact in bf16), f32 inputs get HIGHEST.
+    # value fold in the values' compute class: bf16 inputs run at
+    # DEFAULT (f32 accumulation; 0/1 one-hot entries are exact in bf16),
+    # f32 inputs get HIGHEST.
     cdt = values.dtype if values.dtype == jnp.bfloat16 else jnp.float32
     flat = (values.reshape(b, n, -1).astype(jnp.float32)
             * sf[:, :, None]).astype(cdt)

@@ -3,7 +3,7 @@
 The reference had NO distribution at all (SURVEY.md §2.3 — single Django
 process, CPU torch); its only "transport" was the client<->server HTTP hop.
 Scaling here is pure ``jax.sharding``: we declare a mesh and per-tensor
-``NamedSharding``s, and XLA GSPMD inserts the collectives over ICI.
+``NamedSharding``s, and XLA GSPMD inserts the collectives.
 
 Mesh axes:
     data   — batch dimension (DP); gradients reduce over this axis
@@ -71,17 +71,9 @@ def make_mesh(
         raise ValueError(
             f"mesh {tuple(shape)} needs {need} devices, got {len(devices)}"
         )
-    # topology-aware assignment: flat enumeration order does NOT guarantee
-    # that axis neighbors (ppermute hops: pipeline stages, ring attention)
-    # are physical ICI neighbors on a real slice. create_device_mesh picks
-    # a layout that makes them so; fall back to reshape for explicit
-    # device lists / backends it doesn't know (CPU meshes don't care).
-    try:
-        from jax.experimental import mesh_utils
-
-        arr = mesh_utils.create_device_mesh(tuple(shape), devices=devices)
-    except Exception:  # noqa: BLE001 — assignment quality only
-        arr = np.asarray(devices).reshape(shape)
+    # the mesh follows the algorithm only: the devices of one host are
+    # joined all to all, so enumeration order is as good as any
+    arr = np.asarray(devices).reshape(shape)
     return Mesh(arr, tuple(names))
 
 
@@ -167,7 +159,7 @@ def param_spec(path: str) -> P:
     if path.endswith("exp_fc1_w") or path.endswith("exp_fc2_w"):
         # EP: experts shard over "model" — the dispatch einsum's [E,C,D]
         # buffers inherit the E-sharding and GSPMD inserts the token
-        # all-to-all over ICI (models/moe.py)
+        # all-to-all (models/moe.py)
         return P("model", None, None)
     if path.endswith("exp_fc1_b") or path.endswith("exp_fc2_b"):
         return P("model", None)

@@ -1,10 +1,10 @@
 """Pipeline parallelism: GPipe-style microbatched stages over a mesh axis.
 
 SURVEY.md §2.3 maps the reference's topo-stages (its graph order was a
-natural stage decomposition, ``main/graph.py:79-99``) onto TPU pipeline
+natural stage decomposition, ``main/graph.py:79-99``) onto pipeline
 parallelism. Design: SPMD ``shard_map`` over a "stage" axis — every device
 runs the same schedule; stage s holds blocks [s*L/S, (s+1)*L/S); activations
-hop stages via ``ppermute`` (ICI neighbors); microbatches fill the pipe with
+hop stages via ``ppermute``; microbatches fill the pipe with
 the classic (M + S - 1)-tick schedule.
 
 This is the scale-out path for models whose *weights* don't fit one chip

@@ -1,11 +1,11 @@
 """Sequence parallelism: ring attention + Ulysses head-parallel attention.
 
-The long-sequence scale-out path (SURVEY.md §2.3, §5): when one chip's VMEM
-can no longer hold a sequence's K/V (far beyond ViT-L/16@384's 577 tokens,
+The long-sequence scale-out path (SURVEY.md §2.3, §5): when one device's
+memory can no longer hold a sequence's K/V (far beyond ViT-L/16@384's 577 tokens,
 but first-class in this framework), shard the token axis across the mesh:
 
 * **Ring attention**: each device keeps its Q shard and circulates K/V
-  shards around the ring with ``jax.lax.ppermute`` (lowered onto ICI),
+  shards around the ring with ``jax.lax.ppermute``,
   folding each visiting shard into an online-softmax accumulator. Peak
   memory per device: one K/V shard + O(n_local) stats. Communication
   overlaps compute under XLA's latency-hiding scheduler.

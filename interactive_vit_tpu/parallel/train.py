@@ -1,11 +1,11 @@
 """Sharded training and inference steps (DP x TP over a mesh).
 
 The reference was inference-only (``torch.no_grad()``,
-``/root/reference/main/context.py:80``); training support is part of the
-TPU-native mandate (the driver's multichip dry-run jits a FULL training
-step). Design: plain ``jax.jit`` over functions whose inputs carry
-``NamedSharding``s — GSPMD propagates the Megatron TP layout from the weight
-shardings (``parallel/mesh.py``) and inserts psums over ICI; gradients
+the reference's ``main/context.py:80``); training support is an addition
+(the multi-device dry-run jits a FULL training step). Design: plain
+``jax.jit`` over functions whose inputs carry ``NamedSharding``s — GSPMD
+propagates the Megatron TP layout from the weight shardings
+(``parallel/mesh.py``) and inserts the psums; gradients
 reduce over the data axis automatically because params are replicated on it.
 """
 
@@ -170,22 +170,33 @@ def make_optimizer(lr: float = 3e-4, wd: float = 0.05,
 
 MOE_AUX_WEIGHT = 0.01  # Switch load-balance loss coefficient
 
-V5E_HBM_BYTES = 16 << 30
+def device_memory_bytes(device=None):
+    """The device's own memory limit (``memory_stats()["bytes_limit"]``),
+    or None where the backend does not report one."""
+    try:
+        stats = (device or jax.devices()[0]).memory_stats() or {}
+    except Exception:  # noqa: BLE001 — backends without memory stats
+        return None
+    return stats.get("bytes_limit")
 
 
 def auto_remat(cfg, per_device_batch: int, dtype=jnp.float32,
-               flash_attn: bool = False, hbm_bytes: int = V5E_HBM_BYTES,
-               budget_frac: float = 0.7) -> bool:
-    """Decide per-block rematerialization from an HBM working-set estimate.
+               hbm_bytes=None, budget_frac: float = 0.7) -> bool:
+    """Decide per-block rematerialization from a memory working-set
+    estimate.
 
-    Remat OFF is measured 1.40-1.43x faster per step on v5e (vit_s16@128:
-    89.0 -> 62.4 ms; vit_b16@128: 235 -> 168 ms — r3_train_profile
-    2026-08-19): the extra forward is pure waste whenever the no-remat
-    backward's saved activations fit HBM. This estimates that working set
-    (coarse, upper-bound-ish) and returns True (remat ON) only when it
-    would breach ``budget_frac`` of HBM. Unknown config families (swin's
-    per-stage geometry) conservatively keep remat ON.
+    Without remat the backward saves the block activations instead of
+    recomputing the forward, so remat is pure waste whenever those
+    activations fit. This estimates that working set (coarse,
+    upper-bound-ish) and returns True (remat ON) only when it would
+    breach ``budget_frac`` of ``hbm_bytes`` (default: the device's own
+    limit, ``device_memory_bytes``). Where the limit is unknown, and for
+    unknown config families (swin's per-stage geometry), remat stays ON.
     """
+    if hbm_bytes is None:
+        hbm_bytes = device_memory_bytes()
+    if not hbm_bytes:
+        return True
     d = getattr(cfg, "width", None)
     depth = getattr(cfg, "depth", None)
     if not (d and depth and hasattr(cfg, "img_size")
@@ -199,10 +210,8 @@ def auto_remat(cfg, per_device_batch: int, dtype=jnp.float32,
     # attention out, proj in/out, LN stats, residuals) + the MLP hidden
     # twice (pre/post GELU)
     per_block = per_device_batch * n * (12 * d + 2 * mlp_dim) * bytes_per
-    if not flash_attn:
-        # XLA attention saves the probs for the backward and re-streams
-        # them f32-ish; the custom-VJP flash kernel saves nothing N x N
-        per_block += 2 * per_device_batch * heads * n * n * 4
+    # XLA attention saves the probs for the backward, f32-ish
+    per_block += 2 * per_device_batch * heads * n * n * 4
     experts = getattr(cfg, "n_experts", 0) or 1
     n_params = (depth * (4 * d * d + 2 * d * mlp_dim * experts)
                 + 2 * n * d + d * getattr(cfg, "num_classes", 1000))
@@ -252,24 +261,16 @@ def loss_fn(params: Params, images: jnp.ndarray, labels: jnp.ndarray,
     return cross_entropy(logits, labels, label_smoothing)
 
 
-def wants_head_major(cfg, mesh, attn_impl=None) -> bool:
-    """Whether training should run head-major qkv columns ([H][3][Dh]).
-
-    Two independent reasons: (a) TP is active — the flat column sharding
-    must be head-aligned (the Megatron split); (b) the packed custom-VJP
-    attention kernel is in play — it consumes the head-major qkv
-    activation directly, eliminating the transpose copies around the
-    custom call. Swin never repacks (per-stage head counts).
+def wants_head_major(cfg, mesh) -> bool:
+    """Whether training should run head-major qkv columns ([H][3][Dh]):
+    when TP is active, the flat column sharding must be head-aligned (the
+    Megatron split). Swin never repacks (per-stage head counts).
     Checkpoint EXPORTS must consult this too: the on-disk canonical
     layout is torch-style [3][H][Dh] (``unpermute_qkv_head_major``).
     """
     if _plain_forward_family(model_family(cfg)):
         return False
-    if dict(zip(mesh.axis_names, mesh.devices.shape)).get("model", 1) > 1:
-        return True
-    return (getattr(attn_impl, "packed", None) is not None
-            and attn_impl.packed_ok(cfg.heads, cfg.width // cfg.heads,
-                                    cfg.tokens))
+    return dict(zip(mesh.axis_names, mesh.devices.shape)).get("model", 1) > 1
 
 
 def remat_wrapper(remat):
@@ -522,14 +523,7 @@ def setup_sharded_distill(cfg: vit.ViTConfig, teacher_cfg, teacher_params,
     params = vit.init_params(
         jax.random.key(seed), cfg,
         **({"dtype": dtype} if dtype is not None else {}))
-    if isinstance(attn_impl, str):
-        from interactive_vit_tpu.ops.dispatch import default_train_attn_impl
-
-        attn_impl = default_train_attn_impl(
-            attn_impl, n_devices=mesh.devices.size,
-            dtype=compute_dtype
-            or jax.tree_util.tree_leaves(params)[0].dtype)
-    head_major = wants_head_major(cfg, mesh, attn_impl)
+    head_major = wants_head_major(cfg, mesh)
     if head_major:
         params = mesh_lib.permute_qkv_head_major(params, cfg.heads)
     params = mesh_lib.shard_params(params, mesh)
@@ -670,10 +664,8 @@ def setup_sharded(
     train_step donates params/opt_state buffers. Pass ``optimizer`` to use
     a configured one (schedule/clipping via ``make_optimizer``).
 
-    ``attn_impl``: a callable (``attention.mhsa`` contract), None for the
-    XLA reference, or a policy string for
-    ``ops.dispatch.default_train_attn_impl`` ("auto" = the custom-VJP
-    flash kernel on a single TPU device with bf16 params).
+    ``attn_impl``: a callable (``attention.mhsa`` contract) or None for
+    the plain path, which XLA differentiates.
     ``dtype``: parameter dtype (None = f32, the parity default; bf16 is
     the pure-bf16 throughput config).
     ``compute_dtype``: mixed precision — keep ``dtype`` at f32 masters
@@ -683,23 +675,15 @@ def setup_sharded(
     params = model_family(cfg).init_params(
         jax.random.key(seed), cfg,
         **({"dtype": dtype} if dtype is not None else {}))
-    if isinstance(attn_impl, str):
-        from interactive_vit_tpu.ops.dispatch import default_train_attn_impl
-
-        attn_impl = default_train_attn_impl(
-            attn_impl, n_devices=mesh.devices.size,
-            dtype=compute_dtype
-            or jax.tree_util.tree_leaves(params)[0].dtype)
     # head-major qkv columns whenever TP is active (makes param_spec's
     # flat column sharding head-ALIGNED — the actual Megatron split; the
     # torch layout [3][H][Dh] would force GSPMD to reshard the activation
-    # at the head reshape) or the packed kernel is selected (it reads the
-    # head-major activation in place). Swin keeps flat columns under TP:
+    # at the head reshape). Swin keeps flat columns under TP:
     # per-stage head counts (3/6/12/24) need not divide the model axis —
     # GSPMD reshards at the window reshape instead; correctness unchanged.
     fam = model_family(cfg)
     is_plain = _plain_forward_family(fam)
-    head_major = wants_head_major(cfg, mesh, attn_impl)
+    head_major = wants_head_major(cfg, mesh)
     if head_major:
         params = mesh_lib.permute_qkv_head_major(params, cfg.heads)
     params = mesh_lib.shard_params(params, mesh)

@@ -2,7 +2,7 @@
 // ready-to-device batches, produced by worker threads ahead of the
 // training step.
 //
-// The TPU-side training loop (tools/train.py) is jit-bound; the host's
+// The device-side training loop (tools/train.py) is jit-bound; the host's
 // job is to have the NEXT batch's bytes contiguous before step N
 // returns. This loader mmaps an images array ([N,C,H,W] f32) and a
 // labels array ([N] i64), and a small thread pool fills a bounded ring

@@ -1,12 +1,10 @@
 """Served-program inventory: warm the NEXT worker generation's caches.
 
-Worker recycling is mandatory on leaky-PJRT rigs (serving/recycle.py),
-but each fresh generation boots with an EMPTY in-process program cache:
-every program signature the previous generation served must re-stage
-(trace + lower + persistent-cache deserialize) on first demand, and
-under sustained traffic clients eat a seconds-long p50 until the whole
-working set is rebuilt — measured 4137 ms final-generation wire_p50 vs
-360 ms steady in the r4 round artifact (VERDICT r4 weak #1).
+Each fresh worker generation (serving/recycle.py) boots with an EMPTY
+in-process program cache: every program signature the previous
+generation served must re-stage (trace + lower + persistent-cache
+deserialize) on first demand, and under sustained traffic clients eat a
+seconds-long p50 until the whole working set is rebuilt.
 
 This module closes the loop:
 
@@ -27,7 +25,7 @@ This module closes the loop:
 
 The reference has no analog (its Django server held no compiled state;
 ``/root/reference/main/views.py:30-42`` re-ran eager torch per request);
-this is the TPU serving tier protecting its own always-hot surface.
+this is the serving tier protecting its own always-hot surface.
 """
 
 from __future__ import annotations
@@ -193,10 +191,9 @@ def warm(executor, entries: List[Dict], budget_s: float = 120.0,
 
     ``workers``: staging threads. ``Executor.precompile`` is documented
     thread-safe (ShapeDtypeStruct lowering, no device arrays, lock-
-    guarded cache) and each warm is Python tracing (GIL) + a compile-
-    helper round trip, so a few threads overlap the RPC waits —
-    measured 91 s serial for a 27-program production inventory, and the
-    whole warm happens while clients sit in the listen backlog.
+    guarded cache) and each warm is Python tracing (GIL) + an XLA
+    compile (GIL released), so a few threads overlap the compiles —
+    the whole warm happens while clients sit in the listen backlog.
     """
     import collections
 

@@ -80,13 +80,13 @@ def main(argv=None) -> None:
     parser.add_argument("--dtype", default="float32",
                         choices=["float32", "bfloat16", "mixed"],
                         help="mixed = f32 master params + bf16 compute "
-                             "(f32 AdamW moments; the standard TPU "
-                             "recipe — see ivt-train --dtype)")
+                             "(f32 AdamW moments; the standard mixed-"
+                             "precision recipe — see ivt-train --dtype)")
     parser.add_argument("--remat", default="off",
                         choices=["on", "off", "dots"],
                         help="per-block remat (default off: the 75%%-mask "
                              "encoder is small; turn on for mae_b16-class "
-                             "batches that breach HBM)")
+                             "batches that exceed device memory)")
     parser.add_argument("--accum-steps", type=int, default=1)
     parser.add_argument("--memorize", type=int, default=256,
                         help="pretrain on a FIXED set of N patterned "

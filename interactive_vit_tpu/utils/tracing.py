@@ -1,7 +1,7 @@
 """Tracing, profiling, and numeric sanitizers.
 
 The reference's observability was console DEBUG narration (SURVEY.md §5).
-TPU-native replacements:
+Device-aware replacements:
 
 * ``trace(dir)`` — jax.profiler Perfetto traces; the executor wraps every
   node in ``jax.named_scope("n<i>_<kind>")`` so XLA trace events map back to

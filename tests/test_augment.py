@@ -1,7 +1,7 @@
 """On-device training augmentations (data/augment.py) + soft-label loss.
 
 The reference trains nothing (``/root/reference/main/context.py:79-88``);
-these pin the TPU-native augmentation stack's semantics: every op is a
+these pin the on-device augmentation stack's semantics: every op is a
 deterministic static-shape function of a PRNG key, mixing ops emit soft
 labels consistent with the pixels they actually mixed, and the train step
 consumes soft labels through gradient accumulation unchanged.

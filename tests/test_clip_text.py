@@ -333,7 +333,7 @@ def test_zeroshot_graph_evaluates(reg_and_model, monkeypatch):
     vcfg = clip_vision.CLIPVisionConfig(
         name="clip_b32", img_size=32, patch=16, width=64, depth=2,
         heads=4, embed_dim=32)
-    make_clip_model(cfg=vcfg, kernels=False).register(reg)
+    make_clip_model(cfg=vcfg).register(reg)
     tcfg = clip_text.CLIPTextConfig(
         name=CFG.name, vocab_size=CFG.vocab_size, width=CFG.width,
         depth=CFG.depth, heads=CFG.heads, embed_dim=CFG.embed_dim)

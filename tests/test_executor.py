@@ -1,5 +1,6 @@
 """Staged executor tests: staging, caching, taps, error attribution."""
 
+import os
 import numpy as np
 import pytest
 
@@ -7,6 +8,10 @@ from interactive_vit_tpu.graph.executor import Executor, NodeError, resolve_taps
 from interactive_vit_tpu.graph.ir import Graph
 from interactive_vit_tpu.graph.registry import Registry
 from interactive_vit_tpu.ops.node_ops import register_builtin
+
+# the reference's own saved graphs, as committed copies in this repo
+GRAPHS = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "static", "graphs")
 
 
 @pytest.fixture
@@ -314,7 +319,7 @@ def test_descriptions_isolates_broken_kind():
     reg = Registry()
     register_builtin(reg)
     Broken().register(reg)
-    app = App(reg=reg, graphs_dir="/root/reference/static/graphs")
+    app = App(reg=reg, graphs_dir=GRAPHS)
     out = app.descriptions(["cos", "broken_io", "missing"])
     assert out["cos"]["io"]["ins"] == ["o"]
     assert "error" in out["broken_io"]

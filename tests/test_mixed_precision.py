@@ -5,7 +5,7 @@ Why it exists: optax moments inherit the PARAM dtype, so the pure-bf16
 config stores AdamW's mu/nu in bf16 (nu underflows small squared grads)
 and applies updates in bf16 (sub-ulp updates round away — a ~1.0-magnitude
 param cannot absorb an update below ~2^-8). The mixed recipe keeps f32
-masters/moments and runs the forward/backward in bf16 — the standard TPU
+masters/moments and runs the forward/backward in bf16 — the standard
 large-model setup. The reference is inference-only
 (/root/reference/main/context.py:80); training is this framework's tier.
 """

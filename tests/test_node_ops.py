@@ -1,5 +1,6 @@
 """Built-in node-kind semantics vs the reference WGSL/torch behaviors."""
 
+import os
 import base64
 import json
 
@@ -11,6 +12,10 @@ from interactive_vit_tpu.graph.ir import Graph
 from interactive_vit_tpu.graph.registry import Registry
 from interactive_vit_tpu.ops.node_ops import register_builtin
 from interactive_vit_tpu.wire.schema import graph_from_json
+
+# the reference's own saved graphs, as committed copies in this repo
+GRAPHS = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "static", "graphs")
 
 
 @pytest.fixture
@@ -122,27 +127,31 @@ def test_resize_shapes(ex):
 
 
 def test_reference_saved_graph_noise_json_evaluates(ex):
-    """The reference's own saved demo graph evaluates fully server-side."""
-    with open("/root/reference/static/graphs/noise.json") as f:
+    """The saved noise demo graph evaluates fully server-side."""
+    with open(os.path.join(GRAPHS, "demo_noise.json")) as f:
         obj = json.load(f)
     g = graph_from_json(obj)
     out = ex.run(g, taps="all")
-    # node 7 = final binop "+": noise*(1-0.8-ish composite) per noise.json
-    assert out[7]["c"].shape == (100, 100)
-    # compositing math: ((1-0.8)-? ...) just sanity-check finiteness
-    assert np.isfinite(np.asarray(out[7]["c"])).all()
+    # node 3 = final binop "+": noise * 0.5 + 0.5 per demo_noise.json
+    c = np.asarray(out[3]["c"])
+    assert c.shape == (128, 128)
+    assert np.isfinite(c).all()
+    np.testing.assert_allclose(c, np.asarray(out[0]["o"]) * 0.5 + 0.5,
+                               rtol=1e-6)
 
 
 def test_reference_saved_graph_slice_json_evaluates(ex):
-    with open("/root/reference/static/graphs/slice.json") as f:
+    with open(os.path.join(GRAPHS, "demo_slice.json")) as f:
         obj = json.load(f)
     g = graph_from_json(obj)
     # img_src is an identity node: bind a synthetic CHW image to it
     img = np.random.default_rng(0).random((3, 20, 30)).astype(np.float32)
     g.add_input(img, g.nodes[0], "o")
     out = ex.run(g, taps="all")
-    np.testing.assert_array_equal(out[1]["o"], img[0])         # slice [0,:,:]
-    np.testing.assert_array_equal(out[3]["o"], img[0].T)       # shuffle swap
+    np.testing.assert_array_equal(out[1]["o"], img[1])         # slice [1,:,:]
+    np.testing.assert_array_equal(out[2]["o"], img[1].T)       # shuffle swap
+    conv = np.asarray(out[3]["o"])                      # valid 3x3 conv2d
+    assert conv.shape[-2:] == (18, 28) and np.isfinite(conv).all()
 
 
 def test_contents_serve_editable_html():

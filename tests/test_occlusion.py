@@ -188,7 +188,7 @@ class _TwinProbe(NodeKind):
 def test_replay_keeps_kernel_fn_not_grad_twin(reg):
     # occlusion's replay is forward-only (differentiates=False): the
     # executor must re-trace the cone through each kind's regular fn —
-    # on TPU that keeps the Pallas kernels — NOT the grad twin. The
+    # on the GPU that keeps the attention kernels — NOT the grad twin. The
     # saliency control confirms differentiated replays still twin.
     probe = _TwinProbe()
     probe.register(reg)

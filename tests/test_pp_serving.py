@@ -5,7 +5,7 @@ of same-fold-group layer nodes (vit blocks) with ONE GPipe schedule
 (``parallel/pipeline.py``) — stage s holds blocks [s*L/S, (s+1)*L/S) and
 activations hop stages over ``ppermute``. The reference's topo-stages
 (``/root/reference/main/graph.py:79-99``) are the natural stage
-decomposition SURVEY.md §2.3 maps onto TPU PP; folding is an execution
+decomposition SURVEY.md §2.3 maps onto pipeline parallelism; folding is an execution
 strategy only, so results must match the sequential executor bit-for-class.
 """
 

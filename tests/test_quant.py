@@ -116,7 +116,7 @@ def test_graph_path_runs_quantized(tmp_path):
         del vit.VARIANTS["vit_q8"]
 
 
-# -- W8A8 (dynamic activation quantization, int8 MXU matmuls) ----------------
+# -- W8A8 (dynamic activation quantization, int8 matmuls) --------------------
 
 
 def test_quantize_acts_roundtrip_bound():

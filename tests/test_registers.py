@@ -168,11 +168,18 @@ def test_register_rows_are_pos_free():
 
 
 def test_layer_scale_guard_rejects_kernels():
+    """An attention implementation handed to the block (the dispatcher's
+    ``auto_attention``) cannot skip the LayerScale gammas: with both
+    gammas zeroed the block is the identity."""
+    from interactive_vit_tpu.ops.dispatch import auto_attention
+
     params = vit.init_params(jax.random.key(0), CFG)
-    with pytest.raises(ValueError, match="LayerScale"):
-        vit.block(params["blocks"][0],
-                  jnp.zeros((1, CFG.tokens, 48)), CFG,
-                  block_impl=lambda *a, **k: None)
+    p = dict(params["blocks"][0])
+    p["ls1"] = jnp.zeros_like(p["ls1"])
+    p["ls2"] = jnp.zeros_like(p["ls2"])
+    x = jax.random.normal(jax.random.key(1), (1, CFG.tokens, 48))
+    y, _, _ = vit.block(p, x, CFG, attn_impl=auto_attention)
+    np.testing.assert_array_equal(np.asarray(y), np.asarray(x))
 
 
 def test_adapt_pos_embed_keeps_registers_out():

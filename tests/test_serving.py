@@ -1,6 +1,7 @@
 """Serving tier tests: endpoints, wire contract over HTTP, micro-batching."""
 
 import json
+import os
 import threading
 import urllib.request
 import urllib.error
@@ -15,12 +16,17 @@ from interactive_vit_tpu.ops.node_ops import register_builtin
 from interactive_vit_tpu.serving.app import App
 from interactive_vit_tpu.wire.codec import Request, Response
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FRONTEND = os.path.join(REPO, "frontend")
+# the reference's own saved graphs, as committed copies in this repo
+GRAPHS = os.path.join(REPO, "static", "graphs")
+
 
 @pytest.fixture(scope="module")
 def served():
     reg = Registry()
     register_builtin(reg)
-    app = App(reg=reg, graphs_dir="/root/reference/static/graphs",
+    app = App(reg=reg, graphs_dir=GRAPHS,
               max_wait_ms=5.0)
     httpd = app.serve("127.0.0.1", 0, background=True)
     port = httpd.server_address[1]
@@ -89,8 +95,8 @@ def test_batched_descriptions(served):
 def test_list_and_load_graphs(served):
     _, base = served
     names = json.loads(_get(base + "/list_graphs"))
-    assert "noise.json" in names
-    obj = json.loads(_get(base + "/load_graph/noise.json"))
+    assert "demo_noise.json" in names
+    obj = json.loads(_get(base + "/load_graph/demo_noise.json"))
     assert "nodes" in obj and "edges" in obj
 
 
@@ -175,8 +181,8 @@ def test_run_stacked_direct():
 def test_frontend_assets_served():
     reg = Registry()
     register_builtin(reg)
-    app = App(reg=reg, graphs_dir="/root/reference/static/graphs",
-              frontend_dir="/root/repo/frontend")
+    app = App(reg=reg, graphs_dir=GRAPHS,
+              frontend_dir=FRONTEND)
     httpd = app.serve("127.0.0.1", 0, background=True)
     try:
         base = f"http://127.0.0.1:{httpd.server_address[1]}"
@@ -216,7 +222,7 @@ def test_primary_policy_and_explicit_taps():
                            params=vit_mod.init_params(jax.random.key(0), cfg))
     model.register(reg)
 
-    app = App(reg=reg, graphs_dir="/root/reference/static/graphs")
+    app = App(reg=reg, graphs_dir=GRAPHS)
     httpd = app.serve("127.0.0.1", 0, background=True)
     try:
         base = f"http://127.0.0.1:{httpd.server_address[1]}"
@@ -292,7 +298,7 @@ def test_debug_eval_computes_wired_optional_channels():
         model = make_vit_model(
             "vit_dbg", params=vit_mod.init_params(jax.random.key(0), cfg))
         model.register(reg)
-        app = App(reg=reg, graphs_dir="/root/reference/static/graphs")
+        app = App(reg=reg, graphs_dir=GRAPHS)
         g = Graph()
         emb = g.add_node("vit_dbg:embed")
         b0 = g.add_node("vit_dbg:blocks.0")
@@ -317,7 +323,7 @@ def test_compute_timeout_returns_503():
 
     reg = Registry()
     register_builtin(reg)
-    app = App(reg=reg, graphs_dir="/root/reference/static/graphs",
+    app = App(reg=reg, graphs_dir=GRAPHS,
               compute_timeout_s=0.2)
 
     class WedgedBatcher:
@@ -412,8 +418,8 @@ def test_static_absolute_path_traversal_blocked():
     page for every static path."""
     reg = Registry()
     register_builtin(reg)
-    app = App(reg=reg, graphs_dir="/root/reference/static/graphs",
-              frontend_dir="/root/repo/frontend")
+    app = App(reg=reg, graphs_dir=GRAPHS,
+              frontend_dir=FRONTEND)
     httpd = app.serve("127.0.0.1", 0, background=True)
     try:
         base = f"http://127.0.0.1:{httpd.server_address[1]}"

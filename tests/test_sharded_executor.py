@@ -30,8 +30,9 @@ def setup(tmp_path_factory):
     reg = Registry()
     register_builtin(reg)
     lib = GraphLibrary(str(tmp_path_factory.mktemp("graphs")))
-    # kernels=False: the mesh path serves through GSPMD-partitionable XLA
-    make_vit_model("vit_mesh", kernels=False).register(reg, lib)
+    # attn_impl=None: the mesh path serves the GSPMD-partitionable plain
+    # attention path
+    make_vit_model("vit_mesh").register(reg, lib)
     yield reg, lib
     del vit.VARIANTS["vit_mesh"]
 
@@ -136,12 +137,10 @@ def test_quantized_captures_tp_shard():
 
 def test_mesh_output_shardings_pinned(setup):
     """Mesh-mode jit pins entry-output shardings: stacked outputs shard
-    their bucket dim over "data", single-request taps replicate (the
-    layout half of ops/layouts.row_major_mesh_out_shardings composes on
-    real TPU only — see the module docstring)."""
+    their bucket dim over "data", single-request taps replicate."""
     from jax.sharding import PartitionSpec as P
 
-    from interactive_vit_tpu.ops.layouts import mesh_out_spec
+    from interactive_vit_tpu.graph.executor import mesh_out_spec
 
     mesh = make_mesh({"data": 4, "model": 2})
     assert mesh_out_spec((8, 3, 5), mesh, batched=True) == P("data")
@@ -213,11 +212,6 @@ def test_head_major_tp_layout_matches_baseline():
         np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-5)
     np.testing.assert_allclose(np.asarray(got["rollout"]),
                                np.asarray(base["rollout"]), atol=1e-5)
-
-    # and the guard: head-major weights must not reach the fused kernels
-    with pytest.raises(ValueError):
-        vit.block(perm["blocks"][0], jnp.zeros((1, 5, 64)), cfg,
-                  qkv_head_major=True, block_impl=lambda *a, **k: None)
 
 
 def test_mesh_stacked_mixed_dynamic_values(setup):

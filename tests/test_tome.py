@@ -259,38 +259,3 @@ def test_merge_tap_without_assignment_chain_errors(setup):
 
     with pytest.raises(NodeError, match="'a' channel"):
         ex.run(g, taps={(g.nodes[-1].index, "merge")})
-
-
-def test_kernel_block_impl_matches_xla_path():
-    """The fused-kernel ToMe path (key_bias + in-kernel metric) matches
-    the XLA reference path through the FULL ladder, taps included —
-    identical lut decisions (the metric is exact f32) and matching
-    logits/maps/rollout within kernel tolerance."""
-    import functools
-
-    import jax.experimental.pallas as pl
-
-    from interactive_vit_tpu.ops import fused_block as fb
-
-    orig = fb.pl.pallas_call
-    fb.pl.pallas_call = functools.partial(pl.pallas_call, interpret=True)
-    try:
-        cfg = tome.ToMeViTConfig("tome_kern", img_size=32, patch=8,
-                                 width=64, depth=3, heads=4,
-                                 num_classes=10, r=6)
-        params = tome.init_params(jax.random.key(0), cfg)
-        x = jnp.asarray(np.random.default_rng(0).random(
-            (2, 3, 32, 32), dtype=np.float32))
-        ref = tome.forward(params, x, cfg, want_attn=True)
-        got = tome.forward(params, x, cfg, want_attn=True,
-                           block_impl=fb.fused_attn_block)
-        np.testing.assert_allclose(np.asarray(got["logits"]),
-                                   np.asarray(ref["logits"]), atol=1e-4)
-        for a, b in zip(got["attn"], ref["attn"]):
-            assert a.shape == b.shape
-            np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                       atol=1e-4)
-        np.testing.assert_allclose(np.asarray(got["rollout"]),
-                                   np.asarray(ref["rollout"]), atol=1e-4)
-    finally:
-        fb.pl.pallas_call = orig

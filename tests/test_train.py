@@ -1,5 +1,7 @@
 """Training step: loss decreases on a fixed batch; DP x TP sharded."""
 
+import os
+
 import numpy as np
 
 import jax
@@ -54,11 +56,11 @@ def test_config_from_env(monkeypatch):
 
     monkeypatch.setenv("IVT_MAX_BATCH", "16")
     monkeypatch.setenv("IVT_DEBUG_NANS", "true")
-    monkeypatch.setenv("IVT_ATTN_IMPL", "flash")
+    monkeypatch.setenv("IVT_ATTN_IMPL", "reference")
     cfg = Config.from_env()
     assert cfg.max_batch == 16
     assert cfg.debug_nans is True
-    assert cfg.attn_impl == "flash"
+    assert cfg.attn_impl == "reference"
     assert cfg.port == 8000  # default survives
 
 
@@ -68,7 +70,8 @@ def test_plugin_dir_discovery():
     from interactive_vit_tpu.graph.registry import Registry, scan_plugins
 
     reg = Registry()
-    scan_plugins(["/root/repo/nodes"], reg)
+    scan_plugins([os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "nodes")], reg)
     assert "scale" in reg
     ex = Executor(reg)
     g = Graph()
@@ -275,18 +278,19 @@ def test_resume_layout_marker(tmp_path):
 
 
 def test_swin_train_attn_dispatch_is_none():
-    """swin trains windowed attention — loss_fn ignores attn_impl, so the
-    dispatcher must resolve 'auto' to None (no false 'kernel active' log)
-    and reject an explicit flash_vjp instead of silently ignoring it."""
+    """swin trains windowed attention through XLA autodiff: the train
+    step needs no attention implementation, and the attention policies
+    that remain name no training kernel ("flash_vjp" is gone)."""
     import pytest
 
     from interactive_vit_tpu.models import swin
-    from interactive_vit_tpu.ops.dispatch import default_train_attn_impl
+    from interactive_vit_tpu.ops.dispatch import default_attn_impl
 
     cfg = swin.VARIANTS["swin_t"]
-    assert default_train_attn_impl("auto", cfg=cfg) is None
-    with pytest.raises(ValueError, match="swin"):
-        default_train_attn_impl("flash_vjp", cfg=cfg)
+    assert not train_lib.wants_head_major(
+        cfg, mesh_lib.make_mesh({"data": 1, "model": 2}, jax.devices()[:2]))
+    with pytest.raises(ValueError, match="unknown attention policy"):
+        default_attn_impl("flash_vjp")
 
 
 def test_ema_update_math_and_int_leaves():
@@ -493,3 +497,39 @@ def test_pretrain_then_finetune_cli(tmp_path):
     finally:
         del vit.VARIANTS["vit_train"]
         del mae.VARIANTS["mae_train"]
+
+
+def test_auto_remat_against_an_explicit_memory_limit():
+    """Remat turns OFF when the no-remat working set fits the device's
+    memory and ON when it does not; the limit is passed explicitly."""
+    cfg = vit.VARIANTS["vit_b16"]
+    assert train_lib.auto_remat(cfg, 8, hbm_bytes=80 << 30) is False
+    assert train_lib.auto_remat(cfg, 4096, hbm_bytes=80 << 30) is True
+    assert train_lib.auto_remat(cfg, 8, hbm_bytes=1 << 30) is True
+
+
+def test_auto_remat_unknown_limit_keeps_remat_on(monkeypatch):
+    cfg = vit.VARIANTS["vit_b16"]
+    monkeypatch.setattr(train_lib, "device_memory_bytes", lambda: None)
+    assert train_lib.auto_remat(cfg, 8) is True
+    monkeypatch.setattr(train_lib, "device_memory_bytes",
+                        lambda: 80 << 30)
+    assert train_lib.auto_remat(cfg, 8) is False
+
+
+def test_device_memory_bytes_reads_memory_stats():
+    class Dev:
+        def __init__(self, stats):
+            self.stats = stats
+
+        def memory_stats(self):
+            if isinstance(self.stats, Exception):
+                raise self.stats
+            return self.stats
+
+    assert train_lib.device_memory_bytes(
+        Dev({"bytes_limit": 123})) == 123
+    assert train_lib.device_memory_bytes(Dev(None)) is None
+    assert train_lib.device_memory_bytes(Dev({})) is None
+    assert train_lib.device_memory_bytes(
+        Dev(RuntimeError("no stats"))) is None

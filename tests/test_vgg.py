@@ -6,6 +6,7 @@ evaluates against this framework unmodified.
 """
 
 import json
+import os
 
 import numpy as np
 import pytest
@@ -21,6 +22,10 @@ from interactive_vit_tpu.models import vgg
 from interactive_vit_tpu.models.vgg_plugin import make_vgg16_model
 from interactive_vit_tpu.ops.node_ops import register_builtin
 from interactive_vit_tpu.wire.schema import graph_from_json
+
+# the reference's own saved graphs, as committed copies in this repo
+GRAPHS = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "static", "graphs")
 
 
 def torch_vgg16():
@@ -67,7 +72,7 @@ def setup():
 def test_node_surface_matches_reference_graph(setup):
     """Every endpoint in the reference's saved vgg16.json is registered."""
     _, model, reg = setup
-    with open("/root/reference/static/graphs/vgg16.json") as f:
+    with open(os.path.join(GRAPHS, "vgg16.json")) as f:
         obj = json.load(f)
     endpoints = [
         n["instance"]["endpoint"]
@@ -82,7 +87,7 @@ def test_node_surface_matches_reference_graph(setup):
 def test_reference_vgg16_graph_evaluates(setup):
     _, model, reg = setup
     ex = Executor(reg)
-    with open("/root/reference/static/graphs/vgg16.json") as f:
+    with open(os.path.join(GRAPHS, "vgg16.json")) as f:
         g = graph_from_json(json.load(f))
     img = np.random.default_rng(0).random((3, 64, 64)).astype(np.float32)
     g.add_input(img, g.nodes[0], "o")  # into vgg16:transform

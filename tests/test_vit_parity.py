@@ -117,7 +117,7 @@ def test_preprocess_matches_torch_transform():
 
 
 def test_preprocess_mm_matches_jax_image():
-    """The MXU-matmul preprocess is interchangeable with the jax.image path
+    """The matmul preprocess is interchangeable with the jax.image path
     (resize-as-separable-matmul with crop folded into row selection)."""
     from interactive_vit_tpu.ops.layers import preprocess
     from interactive_vit_tpu.ops.preprocess_mm import preprocess_mm

@@ -1,24 +1,14 @@
-"""Round-tracked multi-config bench -> BENCH_MATRIX_r{N}.json.
-
-``BENCH_r*.json`` (the driver's artifact from ``bench.py``) covers only
-BASELINE config 2 (vit_b16@224 headline); a regression in the ViT-L/16
-@384 flash-tiling path's PERF (its parity is gated by kernel_gate) or in
-the CLIP embedding path would be invisible between rounds (VERDICT r4
-weak #5). This writes one matrix per round with every compute config:
+"""Multi-config compute bench: every BASELINE compute config in one run.
 
     1. vit_t16 @224  — interactive path: batch-1 maps-on latency
-    2. vit_b16 @224  — headline: bf16 maps-on sweep (same protocol as
-                       bench.py; the driver's number should match)
-    3. vit_l16 @384  — flash-tiling config: maps-on @16 AND maps-off
-                       sweep (maps-on @32 is HBM-OOM: 8.2 GB of taps)
+    2. vit_b16 @224  — bf16 maps-on sweep (same protocol as bench.py)
+    3. vit_l16 @384  — maps-on AND maps-off sweeps (N=577)
     4. clip_b32 @224 — embedding-extraction path
 
-Config 5 (concurrent serving) stays in SERVING_r*.json.
-
-Run (owns the TPU; serialize with all other chip use):
+Config 5 (concurrent serving) is ``bench_serving.py``. Prints one JSON
+document, with the device it ran on, to stdout:
 
     make bench-matrix          # = python tools/bench_matrix.py
-    ROUND=5 python tools/bench_matrix.py
 """
 
 import json
@@ -29,9 +19,8 @@ import time
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, _REPO)
 
-import bench  # noqa: E402 — the headline protocol (measure, MFU model)
+import bench  # noqa: E402 — the headline protocol (measure)
 
-ROUND = int(os.environ.get("ROUND", "5"))
 ITERS = int(os.environ.get("BENCH_ITERS", "20"))
 
 
@@ -76,30 +65,18 @@ def bench_clip(batches=(32, 64, 128)) -> dict:
         print(f"  clip_b32 batch={batch}: {per_batch[batch]:.1f} imgs/s",
               file=sys.stderr)
     best_batch = max(per_batch, key=per_batch.get)
-    best = per_batch[best_batch]
-    gflops = clip_gflops(cfg)
-    mfu = None
-    if any(d.platform == "tpu" for d in jax.devices()):
-        mfu = round(best * gflops * 1e9 / bench.V5E_BF16_PEAK_FLOPS, 4)
-    return {"imgs_per_s": round(best, 1), "best_batch": best_batch,
-            "per_batch": {str(k): round(v, 1)
-                          for k, v in per_batch.items()},
-            "gflops_per_img": round(gflops, 1), "mfu": mfu}
+    return {"imgs_per_s": per_batch[best_batch], "best_batch": best_batch,
+            "per_batch": {str(k): v for k, v in per_batch.items()},
+            "gflops_per_img": clip_gflops(cfg)}
 
 
 def main() -> int:
-    bench._wait_for_backend()
     import jax
 
-    try:
-        jax.config.update("jax_compilation_cache_dir",
-                          "/tmp/ivt_jit_cache")
-        jax.config.update(
-            "jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:  # noqa: BLE001
-        pass
+    from interactive_vit_tpu.utils import compile_cache
 
-    platform = jax.devices()[0].platform
+    compile_cache.enable()
+    dev = jax.devices()[0]
     rows = {}
     t_all = time.time()
 
@@ -113,32 +90,28 @@ def main() -> int:
         "ms_per_image": r["ms_per_batch"],
         "imgs_per_s": r["imgs_per_s"], "wall_s": round(time.time() - t0, 1)}
 
-    # config 2: the headline (must track BENCH_r{N}.json)
+    # config 2: the headline (same protocol as bench.py)
     t0 = time.time()
     r = bench.measure("vit_b16", "bfloat16", iters=ITERS, want_attn=True)
     rows["vit_b16_headline"] = {
         "config": "2: vit_b16 @224 bf16 maps-on (headline)",
-        **{k: r[k] for k in ("imgs_per_s", "best_batch", "per_batch",
-                             "mfu")},
+        **{k: r[k] for k in ("imgs_per_s", "best_batch", "per_batch")},
         "wall_s": round(time.time() - t0, 1)}
 
-    # config 3: flash-tiling (N=577). maps-on @16 (batch 32 is HBM-OOM
-    # with 8.2 GB of taps — docs), maps-off sweep.
+    # config 3: N=577, maps-on and maps-off sweeps
     t0 = time.time()
-    r = bench.measure("vit_l16", "bfloat16", batches=(8, 16),
+    r = bench.measure("vit_l16", "bfloat16", batches=(8, 16, 32),
                       iters=ITERS, want_attn=True)
     rows["vit_l16_maps"] = {
         "config": "3a: vit_l16 @384 bf16 maps-on",
-        **{k: r[k] for k in ("imgs_per_s", "best_batch", "per_batch",
-                             "mfu")},
+        **{k: r[k] for k in ("imgs_per_s", "best_batch", "per_batch")},
         "wall_s": round(time.time() - t0, 1)}
     t0 = time.time()
     r = bench.measure("vit_l16", "bfloat16", batches=(16, 32, 48),
                       iters=ITERS, want_attn=False)
     rows["vit_l16_nomaps"] = {
         "config": "3b: vit_l16 @384 bf16 maps-off",
-        **{k: r[k] for k in ("imgs_per_s", "best_batch", "per_batch",
-                             "mfu")},
+        **{k: r[k] for k in ("imgs_per_s", "best_batch", "per_batch")},
         "wall_s": round(time.time() - t0, 1)}
 
     # config 4: CLIP embedding extraction
@@ -146,22 +119,14 @@ def main() -> int:
     r = bench_clip()
     rows["clip_b32_embed"] = {
         "config": "4: clip_b32 @224 bf16 embedding extraction",
-        **{k: r[k] for k in ("imgs_per_s", "best_batch", "per_batch",
-                             "mfu")},
+        **{k: r[k] for k in ("imgs_per_s", "best_batch", "per_batch")},
         "wall_s": round(time.time() - t0, 1)}
 
-    doc = {"round": ROUND, "platform": platform, "iters": ITERS,
-           "configs": rows, "wall_s": round(time.time() - t_all, 1),
-           "note": ("config 5 (concurrent serving) lives in "
-                    "SERVING_r*.json; MFU = analytic model FLOPs / v5e "
-                    "197 TF/s bf16 peak")}
-    out = os.path.join(_REPO, f"BENCH_MATRIX_r{ROUND:02d}.json")
-    with open(out, "w") as f:
-        json.dump(doc, f, indent=1)
-    print(f"wrote {out}")
-    for k, v in rows.items():
-        print(f"  {k}: {v.get('imgs_per_s')} imgs/s"
-              + (f" (MFU {v['mfu']:.1%})" if v.get("mfu") else ""))
+    doc = {"device": {"platform": dev.platform, "kind": dev.device_kind,
+                      "count": len(jax.devices())},
+           "iters": ITERS, "configs": rows,
+           "wall_s": round(time.time() - t_all, 1)}
+    print(json.dumps(doc, indent=1))
     return 0
 
 
