@@ -229,10 +229,8 @@ def block(p: Params, x: jnp.ndarray, cfg: MoEViTConfig, i: int,
           attn_impl=None, qkv_head_major: bool = False):
     """Pre-LN block; MoE blocks return router gates as a 4th output.
 
-    Runs the XLA attention path (`attn_ops.mhsa`) — the fused block
-    kernels fuse the DENSE MLP in-kernel and don't apply to routed
-    blocks; dense blocks in this family stay unfused for uniformity
-    (the family exists to demonstrate EP, not single-chip peak).
+    Attention goes through `attn_ops.mhsa` (and ``attn_impl``); the MLP
+    is dense or routed per block.
     """
     h, probs = attn_ops.mhsa(
         L.layer_norm(x, p["ln1_s"], p["ln1_b"], cfg.ln_eps),
@@ -242,7 +240,7 @@ def block(p: Params, x: jnp.ndarray, cfg: MoEViTConfig, i: int,
     x = x + h
     pmean = None
     if want_mean and probs is not None:
-        pmean = probs.astype(jnp.float32).mean(axis=1).astype(probs.dtype)
+        pmean = probs.astype(jnp.float32).mean(axis=1).astype(x.dtype)
     if not want_attn:
         probs = None
     h = L.layer_norm(x, p["ln2_s"], p["ln2_b"], cfg.ln_eps)

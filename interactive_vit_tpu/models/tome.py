@@ -109,7 +109,7 @@ def block(
     x = x + L.linear(out, p["proj_w"], p["proj_b"])
     pmean = None
     if want_mean and probs is not None:
-        pmean = probs.astype(jnp.float32).mean(axis=1).astype(probs.dtype)
+        pmean = probs.astype(jnp.float32).mean(axis=1).astype(x.dtype)
     if not want_attn:
         probs = None
     # the published metric: head-meaned attention keys

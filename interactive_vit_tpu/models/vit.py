@@ -400,11 +400,12 @@ def block(
         h = h * p["ls1"].astype(h.dtype)
     x = x + h
     if want_mean and probs is not None:
-        # mean over heads accumulates in f32, but the emitted map keeps
-        # the maps' own dtype, so rollout_step's precision policy stays
-        # keyed on the model's numeric class (an f32 working copy here
-        # would force HIGHEST rollout matmuls on bf16 models)
-        pmean = probs.astype(jnp.float32).mean(axis=1).astype(probs.dtype)
+        # mean over heads accumulates in f32, but the emitted map takes
+        # the activations' dtype, so rollout_step's precision policy is
+        # keyed on the model's numeric class whichever attention path
+        # made the maps (the plain path's f32 probs would otherwise force
+        # HIGHEST rollout matmuls on bf16 models)
+        pmean = probs.astype(jnp.float32).mean(axis=1).astype(x.dtype)
     if not want_attn:
         probs = None
     elif sel is not None and probs is not None:

@@ -5,13 +5,16 @@ itself: XLA compiles it on every backend. The backend string
 (``jax.default_backend()``) adds kernels on top of it:
 
     "gpu"   bf16 with maps on  -> the Pallas-Triton probs kernel
-                                  (``ops/gpu_attention``)
+                                  (``ops/gpu_attention``), when the
+                                  head dim is a power of two
             bf16 with maps off -> cuDNN fused attention through
-                                  ``jax.nn.dot_product_attention``
+                                  ``jax.nn.dot_product_attention``, when
+                                  the head dim is a multiple of 8, <= 128
     other   the plain path
 
-float32 never gets a kernel: it is the parity path (HIGHEST precision,
-``ops/layers.mm_precision``). Policy names:
+A head dim a kernel cannot take (ViT-H/14's 80 for the probs kernel) runs
+the plain path. float32 never gets a kernel: it is the parity path
+(HIGHEST precision, ``ops/layers.mm_precision``). Policy names:
 
     "auto"       the table above
     "reference"  force the plain path
@@ -25,7 +28,8 @@ import jax.numpy as jnp
 POLICIES = ("auto", "reference")
 
 
-def choose_attention(dtype, want_attn: bool, platform: str = None) -> str:
+def choose_attention(dtype, want_attn: bool, head_dim: int,
+                     platform: str = None) -> str:
     """Name the implementation ``auto_attention`` runs for one call.
 
     Returns "gpu_probs" (the Pallas-Triton kernel), "cudnn" (library
@@ -35,7 +39,10 @@ def choose_attention(dtype, want_attn: bool, platform: str = None) -> str:
     platform = platform or jax.default_backend()
     if platform != "gpu" or jnp.dtype(dtype) != jnp.dtype(jnp.bfloat16):
         return "reference"
-    return "gpu_probs" if want_attn else "cudnn"
+    if want_attn:
+        pow2 = head_dim & (head_dim - 1) == 0
+        return "gpu_probs" if pow2 else "reference"
+    return "cudnn" if head_dim % 8 == 0 and head_dim <= 128 else "reference"
 
 
 def auto_attention(q, k, v, want_attn=False, n_real=None):
@@ -45,7 +52,7 @@ def auto_attention(q, k, v, want_attn=False, n_real=None):
     ``(out, probs | None)``."""
     from interactive_vit_tpu.ops.attention import attention_reference
 
-    impl = choose_attention(q.dtype, want_attn)
+    impl = choose_attention(q.dtype, want_attn, q.shape[-1])
     if impl == "gpu_probs":
         from interactive_vit_tpu.ops.gpu_attention import attention_probs
 

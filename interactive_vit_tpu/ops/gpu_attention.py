@@ -39,17 +39,17 @@ BLOCK_K = 64
 
 
 def _kernel(q_ref, k_ref, v_ref, o_ref, p_ref, *, n: int, n_keys: int,
-            scale: float, block_q: int, block_k: int):
+            scale: float):
     i = pl.program_id(0)
-    rows = i * block_q + jnp.arange(block_q)
+    rows = i * BLOCK_Q + jnp.arange(BLOCK_Q)
     row_ok = (rows < n)[:, None]
-    q = plgpu.load(q_ref.at[pl.ds(i * block_q, block_q), :], mask=row_ok,
+    q = plgpu.load(q_ref.at[pl.ds(i * BLOCK_Q, BLOCK_Q), :], mask=row_ok,
                    other=0.0)
-    n_blocks = pl.cdiv(n, block_k)
+    n_blocks = pl.cdiv(n, BLOCK_K)
 
     def scores(j):
-        cols = j * block_k + jnp.arange(block_k)
-        k = plgpu.load(k_ref.at[pl.ds(j * block_k, block_k), :],
+        cols = j * BLOCK_K + jnp.arange(BLOCK_K)
+        k = plgpu.load(k_ref.at[pl.ds(j * BLOCK_K, BLOCK_K), :],
                        mask=(cols < n)[:, None], other=0.0)
         s = pl.dot(q, k.T) * scale  # f32 accumulation
         return cols, jnp.where((cols < n_keys)[None, :], s, NEG)
@@ -62,33 +62,31 @@ def _kernel(q_ref, k_ref, v_ref, o_ref, p_ref, *, n: int, n_keys: int,
             jnp.exp(s - m_new[:, None]), axis=1)
         return m_new, l
 
-    m0 = jnp.full((block_q,), NEG, jnp.float32)
-    l0 = jnp.zeros((block_q,), jnp.float32)
+    m0 = jnp.full((BLOCK_Q,), NEG, jnp.float32)
+    l0 = jnp.zeros((BLOCK_Q,), jnp.float32)
     m, l = jax.lax.fori_loop(0, n_blocks, stats, (m0, l0))
     inv_l = 1.0 / l
 
     def emit(j, acc):
         cols, s = scores(j)
         p = jnp.exp(s - m[:, None]) * inv_l[:, None]
-        plgpu.store(p_ref.at[pl.ds(i * block_q, block_q),
-                             pl.ds(j * block_k, block_k)],
+        plgpu.store(p_ref.at[pl.ds(i * BLOCK_Q, BLOCK_Q),
+                             pl.ds(j * BLOCK_K, BLOCK_K)],
                     p.astype(p_ref.dtype),
                     mask=row_ok & (cols < n)[None, :])
-        v = plgpu.load(v_ref.at[pl.ds(j * block_k, block_k), :],
+        v = plgpu.load(v_ref.at[pl.ds(j * BLOCK_K, BLOCK_K), :],
                        mask=(cols < n)[:, None], other=0.0)
         return acc + pl.dot(p.astype(v.dtype), v)
 
     acc = jax.lax.fori_loop(
-        0, n_blocks, emit, jnp.zeros((block_q, q.shape[-1]), jnp.float32))
-    plgpu.store(o_ref.at[pl.ds(i * block_q, block_q), :],
+        0, n_blocks, emit, jnp.zeros((BLOCK_Q, q.shape[-1]), jnp.float32))
+    plgpu.store(o_ref.at[pl.ds(i * BLOCK_Q, BLOCK_Q), :],
                 acc.astype(o_ref.dtype), mask=row_ok)
 
 
-@functools.partial(jax.jit, static_argnames=("n_real", "interpret",
-                                             "block_q", "block_k"))
+@functools.partial(jax.jit, static_argnames=("n_real", "interpret"))
 def attention_probs(q: jnp.ndarray, k: jnp.ndarray, v: jnp.ndarray,
-                    n_real: Optional[int] = None, interpret: bool = False,
-                    block_q: int = BLOCK_Q, block_k: int = BLOCK_K):
+                    n_real: Optional[int] = None, interpret: bool = False):
     """softmax(q k^T / sqrt(dh)) v and its probs; inputs [B, H, N, Dh].
 
     Returns ``(out [B, H, N, Dh], probs [B, H, N, N])``, both in q's
@@ -101,12 +99,11 @@ def attention_probs(q: jnp.ndarray, k: jnp.ndarray, v: jnp.ndarray,
         raise ValueError(f"head dim {dh} is not a power of two")
     n_keys = n if n_real is None else min(int(n_real), n)
     kernel = functools.partial(
-        _kernel, n=n, n_keys=n_keys, scale=1.0 / math.sqrt(dh),
-        block_q=block_q, block_k=block_k)
+        _kernel, n=n, n_keys=n_keys, scale=1.0 / math.sqrt(dh))
     seq = pl.BlockSpec((None, None, n, dh), lambda i, bi, hi: (bi, hi, 0, 0))
     return pl.pallas_call(
         kernel,
-        grid=(pl.cdiv(n, block_q), b, h),
+        grid=(pl.cdiv(n, BLOCK_Q), b, h),
         in_specs=[seq, seq, seq],
         out_specs=[seq, pl.BlockSpec((None, None, n, n),
                                      lambda i, bi, hi: (bi, hi, 0, 0))],

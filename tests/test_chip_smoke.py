@@ -31,6 +31,18 @@ def test_phase_selection(cs, four, expected):
     assert set(expected) <= set(cs.PHASES)
 
 
+def test_kernel_cases_match_the_dispatch_table(cs):
+    """The kernels phase asserts the GPU choice for each case; those
+    expectations are the dispatch table's."""
+    from interactive_vit_tpu.ops import dispatch
+
+    assert {dh for (_, _, _, dh), _ in cs.KERNEL_CASES} == {64, 80}
+    for (_, _, _, dh), expect in cs.KERNEL_CASES:
+        for want, impl in expect.items():
+            assert dispatch.choose_attention(
+                "bfloat16", want, dh, "gpu") == impl
+
+
 def test_result_line_format(cs):
     line = cs.result_line("gpu", "NVIDIA H100 80GB HBM3", 1)
     assert json.loads(line) == {"ok": True, "device": {
@@ -119,6 +131,42 @@ def test_maps_request_roundtrip_on_a_small_model(cs, monkeypatch):
                                np.asarray(ref["rollout"])))
     assert err["logits"] < cs.F32_TOL and err["maps"] < cs.F32_TOL
     assert err["rollout"] < cs.F32_TOL
+
+
+_FOUR_ON_CPU = """
+import importlib.util, os, shutil, sys
+repo = sys.argv[1]
+sys.path.insert(0, repo)
+spec = importlib.util.spec_from_file_location(
+    "chip_smoke", os.path.join(repo, "chip_smoke.py"))
+cs = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)
+from interactive_vit_tpu.models import vit
+vit.VARIANTS["vit_smk4"] = vit.ViTConfig(
+    "vit_smk4", img_size=32, patch=16, width=64, depth=2, heads=4,
+    num_classes=5)
+cs.VARIANT = "vit_smk4"
+state = {"graphs": cs._graphs_copy()}
+try:
+    ok = cs.run_phases([("four", cs.phase_four)], state)
+finally:
+    shutil.rmtree(state["graphs"], ignore_errors=True)
+sys.exit(0 if ok else 1)
+"""
+
+
+def test_four_phase_on_four_virtual_devices():
+    """The --four phase's mesh, requests and comparisons on four virtual
+    CPU devices at a small width (the card run compiles the same path at
+    vit_b16's)."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=4")
+    r = subprocess.run([sys.executable, "-c", _FOUR_ON_CPU, REPO],
+                       capture_output=True, text=True, timeout=600, env=env)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    assert "phase four: ok" in r.stdout
+    assert r.stdout.count("mesh f32 vs f32 reference") == 2
+    assert r.stdout.count("mesh bf16 vs one device bf16") == 4
 
 
 def test_map_checker_catches_bad_rows(cs, monkeypatch):

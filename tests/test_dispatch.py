@@ -1,5 +1,6 @@
 """Attention dispatch policy (ops/dispatch.py): one table keyed by the
-backend string, the dtype and whether the maps are wanted."""
+backend string, the dtype, whether the maps are wanted and the head
+dim."""
 
 import numpy as np
 import pytest
@@ -11,28 +12,79 @@ from interactive_vit_tpu.ops import dispatch
 from interactive_vit_tpu.ops.attention import attention_reference
 
 
-@pytest.mark.parametrize("platform,dtype,want,expected", [
-    ("gpu", jnp.bfloat16, True, "gpu_probs"),
-    ("gpu", jnp.bfloat16, False, "cudnn"),
-    ("gpu", jnp.float32, True, "reference"),
-    ("gpu", jnp.float32, False, "reference"),
-    ("gpu", jnp.float16, True, "reference"),
-    ("cpu", jnp.bfloat16, True, "reference"),
-    ("cpu", jnp.bfloat16, False, "reference"),
-    ("cpu", jnp.float32, True, "reference"),
-    ("tpu", jnp.bfloat16, True, "reference"),
-    ("tpu", jnp.bfloat16, False, "reference"),
+@pytest.mark.parametrize("platform,dtype,want,dh,expected", [
+    ("gpu", jnp.bfloat16, True, 64, "gpu_probs"),
+    ("gpu", jnp.bfloat16, False, 64, "cudnn"),
+    ("gpu", jnp.float32, True, 64, "reference"),
+    ("gpu", jnp.float32, False, 64, "reference"),
+    ("gpu", jnp.float16, True, 64, "reference"),
+    ("cpu", jnp.bfloat16, True, 64, "reference"),
+    ("cpu", jnp.bfloat16, False, 64, "reference"),
+    ("cpu", jnp.float32, True, 64, "reference"),
+    ("METAL", jnp.bfloat16, True, 64, "reference"),
+    ("METAL", jnp.bfloat16, False, 64, "reference"),
+    # head dims: the probs kernel takes powers of two, cuDNN multiples
+    # of 8 up to 128
+    ("gpu", jnp.bfloat16, True, 80, "reference"),
+    ("gpu", jnp.bfloat16, False, 80, "cudnn"),
+    ("gpu", jnp.bfloat16, True, 48, "reference"),
+    ("gpu", jnp.bfloat16, False, 48, "cudnn"),
+    ("gpu", jnp.bfloat16, True, 128, "gpu_probs"),
+    ("gpu", jnp.bfloat16, False, 128, "cudnn"),
+    ("gpu", jnp.bfloat16, True, 256, "gpu_probs"),
+    ("gpu", jnp.bfloat16, False, 256, "reference"),
+    ("gpu", jnp.bfloat16, True, 36, "reference"),
+    ("gpu", jnp.bfloat16, False, 36, "reference"),
+    ("gpu", jnp.float32, True, 80, "reference"),
+    ("cpu", jnp.bfloat16, False, 80, "reference"),
 ])
-def test_choose_attention_table(platform, dtype, want, expected):
+def test_choose_attention_table(platform, dtype, want, dh, expected):
     """The backend string passed in decides; f32 (the parity path) never
-    gets a kernel; only "gpu" has kernels."""
-    assert dispatch.choose_attention(dtype, want, platform) == expected
+    gets a kernel; only "gpu" has kernels, each for the head dims it
+    takes."""
+    assert dispatch.choose_attention(dtype, want, dh, platform) == expected
 
 
 @pytest.mark.parametrize("want", [True, False])
 def test_choose_attention_defaults_to_this_backend(want):
     assert jax.default_backend() == "cpu"
-    assert dispatch.choose_attention(jnp.bfloat16, want) == "reference"
+    assert dispatch.choose_attention(jnp.bfloat16, want, 64) == "reference"
+
+
+def _registered_head_dims():
+    """(name, head dim) of every registered config that routes attention
+    through the dispatcher: the vit family (ViT, DeiT, DINO, DINOv2), the
+    MoE family and the CLIP vision tower."""
+    from interactive_vit_tpu.models import clip, moe, vit
+
+    cfgs = dict(vit.VARIANTS)
+    cfgs.update(moe.VARIANTS)
+    cfgs["clip_vision"] = clip.CLIPVisionConfig()
+    return sorted((k, c.width // c.heads) for k, c in cfgs.items())
+
+
+@pytest.mark.parametrize("name,dh", _registered_head_dims())
+def test_gpu_choice_runs_for_every_registered_head_dim(name, dh):
+    """On "gpu" in bf16 the probs kernel is picked only for head dims it
+    takes (ViT-H/14's 80 is not a power of two: plain path), and cuDNN
+    only for head dims it takes; the chosen path then runs at that head
+    dim (the Triton kernel in interpret mode) and matches the plain
+    path."""
+    from interactive_vit_tpu.ops.gpu_attention import attention_probs
+
+    maps = dispatch.choose_attention(jnp.bfloat16, True, dh, "gpu")
+    assert maps == ("gpu_probs" if dh & (dh - 1) == 0 else "reference")
+    assert dispatch.choose_attention(jnp.bfloat16, False, dh, "gpu") == (
+        "cudnn" if dh % 8 == 0 and dh <= 128 else "reference")
+    if maps == "gpu_probs":
+        ks = jax.random.split(jax.random.key(dh), 3)
+        q, k, v = (jax.random.normal(x, (1, 1, 20, dh), jnp.float32)
+                   .astype(jnp.bfloat16) for x in ks)
+        out, probs = attention_probs(q, k, v, interpret=True)
+        ro, rp = attention_reference(q, k, v, want_attn=True)
+        assert float(jnp.abs(probs.astype(jnp.float32) - rp).max()) < 1e-2
+        assert float(jnp.abs(out.astype(jnp.float32)
+                             - ro.astype(jnp.float32)).max()) < 5e-2
 
 
 @pytest.mark.parametrize("name", [
